@@ -13,14 +13,18 @@ Phases, each of which raises (exit code != 0) on any failure:
    at the full-width shapes of the served models (gemma2-2b attention:
    head_dim 256, window 4096, softcap 50; mamba2-130m SSD: 24 heads of 64,
    state 128, chunk 256) and at smoke width, in float32 and bfloat16, timed
-   with CUDA events (median of several runs after warm-up);
+   with CUDA events (median of several runs after warm-up); the bfloat16
+   flash cases also show that their gate rejects the kernel run with the
+   softcap dropped or the window cut;
 4. model check: the four architectures at smoke width, float32, forward on
    the card (kernels) against forward on the CPU (plain versions);
 5. serving: the serve_rtmm workload through ``repro_torch.launch.serve`` and
    ``repro_torch.serving``, in bfloat16, with gemma2-2b at its published
    width (4 layers, and 2 for its supernet variant) and mamba2-130m whole,
-   both on 1024-token prompts; the kernels' launch counters must match the
-   frames the engine ran;
+   both on 1024-token prompts. Before the run, the full-width bfloat16
+   forwards of both are held, each kernel call inside them and the logits,
+   against the plain versions in float32; after the run, the kernels'
+   launch counters must match the frames the engine ran;
 6. profile: one synchronised forward of context and of kws under
    ``torch.profiler``, device time by kernel.
 
@@ -41,10 +45,22 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
-# float32 on the CUDA cores, HBM3 bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# which set every kernel's bound, float32 on the CUDA cores, printed beside
+# it for the kernels that compute in float32; HBM3 bandwidth
+PEAK_BF16 = 989e12
+PEAK_FP32_CORES = 67e12
 PEAK_BYTES = 3.35e12
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+# A bfloat16 kernel is held against its plain version computed in float32 on
+# the same inputs. It rounds at most twice where that version does not (the
+# probabilities before the PV product, and the output), each by at most the
+# unit roundoff of bfloat16 (8 significant bits), so its relative L2 error
+# stays within 2 * 2**-8.
+BF16_REL_L2 = 2 * 2.0 ** -8
+# q and k of standard deviation 4 give scaled scores of deviation 16: a
+# softcap of 50 bends the larger of them, and the softmax is sharp enough
+# that a dropped key tile shows
+BF16_QK_STD = 4.0
 # the reference's own SSD tolerance (tests/test_kernels.py): kernel and plain
 # version sum the chunk (256 terms) and the state (128 terms) in other orders
 SSD_TOL_FP32 = 3e-4
@@ -94,8 +110,27 @@ def compare(name: str, got, want, tol: float) -> float:
     return float(err.max())
 
 
-def bound(flops: int, nbytes: int, dtype: str) -> tuple[float, str]:
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want||, in float32."""
+    import torch
+    got, want = got.float(), want.float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def check_bf16(name: str, got, want) -> tuple[float, float]:
+    """(max abs err, relative L2 err) of a bf16 kernel's output against its
+    plain version in float32; raises past TOL or BF16_REL_L2."""
+    err = compare(name, got, want, TOL["bfloat16"])
+    rel = rel_l2(got, want)
+    if rel > BF16_REL_L2:
+        raise AssertionError(f"{name}: relative L2 error {rel} above "
+                             f"{BF16_REL_L2}")
+    return err, rel
+
+
+def bound(flops: int, nbytes: int) -> tuple[float, str]:
+    t_ops = flops / PEAK_BF16 * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -123,20 +158,47 @@ def check_flash(torch, gen):
     for label, b, s, n, k, h, win, cap in cases:
         for dname, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
-            q = torch.randn((b, s, n, h), generator=gen, device="cuda").to(dtype)
-            kk = torch.randn((b, s, k, h), generator=gen, device="cuda").to(dtype)
+            # float32 keeps unit inputs, where its 3e-5 sits above rounding
+            amp = BF16_QK_STD if dtype == torch.bfloat16 else 1.0
+            q = (amp * torch.randn((b, s, n, h), generator=gen,
+                                   device="cuda")).to(dtype)
+            kk = (amp * torch.randn((b, s, k, h), generator=gen,
+                                    device="cuda")).to(dtype)
             v = torch.randn((b, s, k, h), generator=gen, device="cuda").to(dtype)
-            run = lambda: ops.flash_attention(q, kk, v, window=win, softcap=cap)
+            run = lambda **kw: ops.flash_attention(
+                q, kk, v, **{"window": win, "softcap": cap, **kw})
             plain = lambda: ref.attention(q, kk, v, window=win, softcap=cap)
             got = run()
             torch.cuda.synchronize()
-            err = compare(f"flash {label} {dname}", got, plain(), TOL[dname])
+            name = f"flash {label} {dname}"
+            rel = None
+            if dname == "float32":
+                err = compare(name, got, plain(), TOL[dname])
+            else:
+                want = ref.attention(q.float(), kk.float(), v.float(),
+                                     window=win, softcap=cap)
+                err, rel = check_bf16(name, got, want)
+                # the gate must reject the kernel run with the softcap dropped,
+                # and with the window cut by one key tile (64 keys)
+                faults = [("no softcap", dict(softcap=None))] if cap else []
+                if win and s > win:
+                    faults.append((f"window {win} - {min(64, win // 2)}",
+                                   dict(window=win - min(64, win // 2))))
+                for what, kw in faults:
+                    r = rel_l2(run(**kw), want)
+                    log(f"[kernels] flash_attention {label} bf16 with {what}: "
+                        f"relative L2 err {r} (gate {BF16_REL_L2})")
+                    if r <= BF16_REL_L2:
+                        raise AssertionError(f"{name}: the gate does not "
+                                             f"reject the kernel with {what}")
+                del want
+            del got
             big = s >= 1024
             ms = time_ms(run, reps=5 if big else 20)
             plain_ms = time_ms(plain, reps=5 if big else 20)
             flops = fa.flops(b, s, s, n, h, True, win)
             nbytes = (2 * q.numel() + 2 * kk.numel()) * q.element_size()
-            bound_ms, bound_by = bound(flops, nbytes, dname)
+            bound_ms, bound_by = bound(flops, nbytes)
             lib_ms = None
             if label == "gemma2-2b global":
                 # yardstick the port never calls: SDPA, causal, no softcap
@@ -146,15 +208,17 @@ def check_flash(torch, gen):
                 lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True), reps=5)
                 del qt, kt, vt
+            core = (f" fp32_cuda_core_bound_ms={flops / PEAK_FP32_CORES * 1e3}"
+                    if dname == "float32" else "")
             log(f"[kernels] flash_attention {label} {dname} B={b} S={s} N={n} "
                 f"K={k} H={h} window={win} softcap={cap}: max_abs_err={err} "
-                f"ms={ms} plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}) "
-                f"library_ms={lib_ms}")
+                f"rel_l2_err={rel} ms={ms} plain_ms={plain_ms} "
+                f"bound_ms={bound_ms} ({bound_by}){core} library_ms={lib_ms}")
             if label == "gemma2-2b global" and dname == "bfloat16":
                 headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by,
                                 library_ms=lib_ms)
-            del q, kk, v, got
+            del q, kk, v
             torch.cuda.empty_cache()
     return headline
 
@@ -198,6 +262,13 @@ def check_ssd(torch, gen):
             err = compare(f"ssd {label} {dname} y", y, y_ref, tol)
             err = max(err, compare(f"ssd {label} {dname} state", fin,
                                    fin_ref, SSD_TOL_FP32))
+            rel = None
+            if dname == "bfloat16":
+                # and against the plain version in float32 on the same x
+                y32, _ = ref.ssd_chunked(pad(x.float()), pad(dt), A, pad(B),
+                                         pad(C), D, chunk=min(ch, s))
+                _, rel = check_bf16(f"ssd {label} bf16 y", y, y32[:, :s])
+                del y32
             if s <= 128:   # the sequential definition, too
                 y_seq, fin_seq = ref.ssd(x, dt, A, B, C, D)
                 compare(f"ssd {label} {dname} y (sequential)", y, y_seq, tol)
@@ -210,11 +281,12 @@ def check_ssd(torch, gen):
             nbytes = (2 * x.numel() * x.element_size()
                       + 4 * (dt.numel() + B.numel() + C.numel() + 2 * h
                              + fin.numel()))
-            bound_ms, bound_by = bound(flops, nbytes, "float32")
+            bound_ms, bound_by = bound(flops, nbytes)
             log(f"[kernels] ssd {label} x={dname} B={b} S={s} H={h} P={p} "
-                f"N={n} chunk={ch}: max_abs_err={err} ms={ms} "
-                f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}) "
-                f"library_ms=None")
+                f"N={n} chunk={ch}: max_abs_err={err} rel_l2_err={rel} "
+                f"ms={ms} plain_ms={plain_ms} bound_ms={bound_ms} "
+                f"({bound_by}) fp32_cuda_core_bound_ms="
+                f"{flops / PEAK_FP32_CORES * 1e3} library_ms=None")
             if label == "mamba2-130m" and dname == "bfloat16":
                 headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by,
@@ -247,6 +319,104 @@ def check_models(torch) -> None:
         err = compare(f"forward {arch} (card vs CPU)", got.cpu(), want, 1e-4)
         log(f"[model] {arch} smoke fp32 S=40: card (kernels) vs CPU (plain) "
             f"max_abs_err={err}")
+
+
+def check_served_forward(torch, cases) -> None:
+    """The full-width bf16 forwards the engine serves, kernel by kernel and
+    whole.
+
+    Each kernel call inside the forward is held, on the inputs the model
+    gave it, against the plain version in float32 (within BF16_REL_L2), and
+    the arguments it got are checked: gemma2-2b's GQA heads and softcap on
+    every layer, its window on the local layers only, the SSD's mixed dtypes
+    on every mamba2 layer. The logits are then held against the plain
+    forward in float32 on the same (bf16-valued) parameters: both bf16
+    paths round the same activations at the same points, except inside the
+    kernels, which keep float32 the longer, so the kernel forward must be no
+    further from it than twice the plain bf16 forward is.
+    """
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+
+    calls = []
+    flash, ssd = ops.flash_attention, ops.ssd
+
+    def tapped_flash(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        want = ref.attention(q.float(), k.float(), v.float(), **kw)
+        calls.append(("flash", tuple(q.shape), tuple(k.shape), q.dtype,
+                      kw.get("window"), kw.get("softcap"),
+                      rel_l2(out, want)))
+        return out
+
+    def tapped_ssd(x, dt, A, B, C, D, *, chunk):
+        y, fin = ssd(x, dt, A, B, C, D, chunk=chunk)
+        s = x.shape[1]
+        xp, dtp, Bp, Cp, ch = ops.pad_to_chunk(chunk, x.float(), dt, B, C)
+        y32, fin32 = ref.ssd_chunked(xp, dtp, A, Bp, Cp, D, chunk=ch)
+        calls.append(("ssd", tuple(x.shape), tuple(B.shape), x.dtype,
+                      (dt.dtype, B.dtype, C.dtype), chunk,
+                      max(rel_l2(y, y32[:, :s]), rel_l2(fin, fin32))))
+        return y, fin
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for h, s in cases:
+        cfg = h.cfg
+        tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        with torch.inference_mode():
+            calls.clear()
+            ops.flash_attention, ops.ssd = tapped_flash, tapped_ssd
+            try:
+                got = M.forward(h.params, cfg, tokens)[0]
+            finally:
+                ops.flash_attention, ops.ssd = flash, ssd
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{h.name} S={s}: non-finite logits")
+            if cfg.family == "ssm":
+                n = cfg.ssm_heads
+                p = cfg.ssm_expand * cfg.d_model // n
+                expect = [("ssd", (1, s, n, p), (1, s, cfg.ssm_state),
+                           torch.bfloat16, (torch.float32,) * 3, cfg.ssm_chunk)
+                          ] * cfg.num_layers
+            else:
+                hd = cfg.resolved_head_dim
+                expect = [("flash", (1, s, cfg.num_heads, hd),
+                           (1, s, cfg.num_kv_heads, hd),
+                           torch.bfloat16,
+                           cfg.local_window if kind == "local" else None,
+                           cfg.attn_logit_softcap)
+                          for _ in range(M.num_groups(cfg))
+                          for kind in M.group_pattern(cfg)]
+            seen = [c[:-1] for c in calls]
+            if seen != expect:
+                raise AssertionError(f"{h.name}: kernel calls {seen}, "
+                                     f"expected {expect}")
+            worst = max(c[-1] for c in calls)
+            log(f"[model] {h.name} ({cfg.name}) bf16 S={s}: {len(calls)} "
+                f"{calls[0][0]} calls as the config sets them; the worst "
+                f"relative L2 err against the float32 plain version on the "
+                f"same inputs {worst} (gate {BF16_REL_L2})")
+            if worst > BF16_REL_L2:
+                raise AssertionError(f"{h.name}: a kernel call off by {worst}")
+
+            p32 = M.tree_map(lambda t: t.float(), h.params)
+            want = M.forward(p32, dataclasses.replace(cfg, dtype="float32"),
+                             tokens, "torch", "torch")[0]
+            del p32
+            kern = rel_l2(got, want)
+            del got
+            plain = rel_l2(M.forward(h.params, cfg, tokens, "torch",
+                                     "torch")[0], want)
+            gate = 2 * plain
+            log(f"[model] {h.name} bf16 S={s}: relative L2 err of the logits "
+                f"against the float32 forward: kernels {kern}, plain {plain} "
+                f"(gate {gate})")
+            if not kern <= gate:
+                raise AssertionError(f"{h.name}: kernel forward off by {kern}, "
+                                     f"above {gate}")
+            del want
+            torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -291,6 +461,9 @@ def serve(torch) -> dict:
     ctx.supernet = ("context@v1",)
     kws = full_width("mamba2-130m", "kws", None, seed=3)
     handles = (det, verif, ctx, ctx_v1, kws)
+    prompt = 1024
+    # context past its 4096 window, so that the local layers' window binds
+    check_served_forward(torch, [(ctx, 6144), (kws, prompt)])
 
     # count the engine's calls of each model, to hold the kernels' launch
     # counters against the layers those calls ran
@@ -300,7 +473,6 @@ def serve(torch) -> dict:
             calls[_name] += 1
             return _fn(p, tokens)
         h.fn = counted
-    prompt = 1024
     for h in (det, verif):
         engine.register(h, np.zeros((1, 32), np.int32))
     for h in (ctx, ctx_v1, kws):

@@ -98,21 +98,15 @@ def _causal_conv(params: dict, xbc: Tensor) -> Tensor:
 def _run_ssd(cfg: SSMConfig, xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor,
              cmat: Tensor, d: Tensor, impl: str) -> tuple[Tensor, Tensor]:
     """The kernel or the torch chunked scan, with the sequence padded to a
-    chunk multiple (padded tokens get dt=0: exact no-ops)."""
-    s = xh.shape[1]
-    ch = min(cfg.chunk, s)
-    pad = (-s) % ch
-    if pad:
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))          # zero dt => decay 1, zero update
-        bmat = F.pad(bmat, (0, 0, 0, pad))
-        cmat = F.pad(cmat, (0, 0, 0, pad))
+    chunk multiple by ``ops.pad_to_chunk`` (padded tokens get dt=0: exact
+    no-ops)."""
     if impl == "kernel":
-        y, fin = kops.ssd(xh, dt, a, bmat, cmat, d, chunk=ch)
-    elif impl == "torch":
-        y, fin = kref.ssd_chunked(xh, dt, a, bmat, cmat, d, chunk=ch)
-    else:
+        return kops.ssd(xh, dt, a, bmat, cmat, d, chunk=cfg.chunk)
+    if impl != "torch":
         raise ValueError(f"ssm impl {impl!r}: 'kernel' or 'torch'")
+    s = xh.shape[1]
+    xh, dt, bmat, cmat, ch = kops.pad_to_chunk(cfg.chunk, xh, dt, bmat, cmat)
+    y, fin = kref.ssd_chunked(xh, dt, a, bmat, cmat, d, chunk=ch)
     return y[:, :s], fin
 
 

@@ -8,7 +8,12 @@ runs where JAX is not installed (the repository's conftest imports JAX):
 
 Tolerances are the reference's (tests/test_kernels.py): atol = rtol = 3e-5
 for float32 attention, 2e-2 for bfloat16, 3e-4 for the SSD scan against the
-sequential definition.
+sequential definition. The bfloat16 flash kernel is held against the plain
+version computed in float32 on the same bfloat16 inputs, drawn so that the
+scaled scores are tens (where a softcap of 50 bends them), and must also
+keep its relative L2 error within ``BF16_REL_L2``: it rounds twice (the
+probabilities before the PV product, and the output), each by at most the
+bfloat16 unit roundoff 2**-8.
 """
 import numpy as np
 import pytest
@@ -42,6 +47,7 @@ SSD_CASES = [
 
 TOL = {torch.float32: dict(atol=3e-5, rtol=3e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+BF16_REL_L2 = 2 * 2.0 ** -8
 
 
 @pytest.fixture
@@ -63,16 +69,22 @@ def _np(t: torch.Tensor) -> np.ndarray:
 def test_flash_kernel_matches_plain(cuda, case, dtype):
     b, sq, n, kv, h, win, cap = case
     rng = np.random.default_rng(7)
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
-               .to(cuda, dtype) for shape in
-               ((b, sq, n, h), (b, sq, kv, h), (b, sq, kv, h)))
+    # q and k of standard deviation 4 give scaled scores of deviation 16
+    amp = 4.0 if dtype == torch.bfloat16 else 1.0
+    q, k, v = (torch.from_numpy(a * rng.standard_normal(shape, np.float32))
+               .to(cuda, dtype) for a, shape in
+               ((amp, (b, sq, n, h)), (amp, (b, sq, kv, h)), (1.0, (b, sq, kv, h))))
     before = fa.launches
     got = ops.flash_attention(q, k, v, window=win, softcap=cap)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
-    want = ref.attention(q, k, v, window=win, softcap=cap)
+    want = ref.attention(q.float(), k.float(), v.float(), window=win,
+                         softcap=cap)
     assert got.dtype == dtype and got.shape == q.shape
     np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    if dtype == torch.bfloat16:
+        rel = float((got.float() - want).norm() / want.norm())
+        assert rel <= BF16_REL_L2, rel
 
 
 @pytest.mark.cuda
