@@ -26,7 +26,18 @@ Phases, each of which raises (exit code != 0) on any failure:
    against the plain versions in float32; after the run, the kernels'
    launch counters must match the frames the engine ran;
 6. profile: one synchronised forward of context and of kws under
-   ``torch.profiler``, device time by kernel.
+   ``torch.profiler``, device time by kernel;
+7. decode: the decode-attention kernel against its plain version at the
+   full-width GQA shapes (gemma2-2b, gemma-2b, qwen1.5-4b), in float32 and
+   bfloat16, timed with a cold L2 beside SDPA and the bound, its bfloat16
+   gate shown rejecting a dropped softcap, a dropped window and pos off by
+   one; the four architectures at smoke width, prefill and decode steps on
+   the card against the CPU; gemma2-2b at its published config, all 26
+   layers, prefill of 4608 tokens into a 5120-row cache and 32 greedy
+   decode steps (every decode-attention call of the first and last step
+   held against float32, the decoded logits against forward on the
+   extended tokens, the launch counter against steps x layers), and
+   mamba2-130m whole, 1024 tokens and 32 steps; ms per decoded token.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -77,14 +88,23 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, warmup: int = 2, reps: int = 5) -> float:
-    """Median device time of ``fn`` in ms, CUDA events around each run."""
+def time_ms(fn, warmup: int = 2, reps: int = 5, flush=None) -> float:
+    """Median device time of ``fn`` in ms, CUDA events around each run.
+
+    With ``flush``, it runs (untimed) before each run, to start it with a
+    cold L2, and then the device sleeps ~1 ms before the start event, so
+    that the host has queued all of ``fn``'s launches by the time the device
+    reaches them: the time is the device's, not the host's launch path (for
+    a kernel of microseconds the two differ many times over)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
+            torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -540,33 +560,350 @@ def serve(torch) -> dict:
 def profile(torch, cases) -> None:
     """Where a served model's device time goes: one synchronised forward
     under torch.profiler, device kernels by self time."""
+    for h, seq in cases:
+        tokens = torch.zeros((1, seq), dtype=torch.int32, device="cuda")
+        profile_fn(torch, f"{h.name} S={seq}",
+                   lambda: h.fn(h.params, tokens))
+
+
+def profile_fn(torch, label: str, fn) -> None:
+    """One synchronised call of ``fn`` (after one warm-up) under
+    torch.profiler: device busy time against wall time, kernels by self
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    for h, seq in cases:
-        tokens = torch.zeros((1, seq), dtype=torch.int32, device="cuda")
-        h.fn(h.params, tokens)
+    with torch.inference_mode():
+        fn()
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            h.fn(h.params, tokens)
+            fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        # kernels only: a CPU op's row, and the GPU-side annotation range
-        # the profiler draws for it, repeat its kernels' time
-        rows = sorted(((e.self_device_time_total, e.count, e.key)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and not getattr(e, "is_user_annotation", False)),
-                      reverse=True)
-        busy = sum(r[0] for r in rows)
-        log(f"[profile] {h.name} S={seq}: device busy {busy:.1f} us of "
-            f"{wall_us:.1f} us wall (profiler on)")
-        for us, count, key in rows[:8]:
-            log(f"[profile]   {us:10.1f} us {100 * us / busy:5.1f}% "
-                f"x{count:<4d} {key[:90]}")
+    # kernels only: a CPU op's row, and the GPU-side annotation range the
+    # profiler draws for it, repeat its kernels' time
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"[profile] {label}: device busy {busy:.1f} us of {wall_us:.1f} us "
+        f"wall (profiler on)")
+    for us, count, key in rows[:8]:
+        log(f"[profile]   {us:10.1f} us {100 * us / busy:5.1f}% "
+            f"x{count:<4d} {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: decode
+# ---------------------------------------------------------------------------
+
+
+def check_decode_kernel(torch, gen):
+    """The decode kernel against its plain version at the full-width GQA
+    shapes, with times, bounds and SDPA beside it. The bf16 gate must reject
+    the kernel run with the softcap dropped, with the window dropped, and
+    with pos off by one either way."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops, ref
+    import torch.nn.functional as F
+
+    cases = [
+        # label, S, N, K, H, window, softcap, pos (one per sequence)
+        ("gemma2-2b local", 5120, 8, 4, 256, 4096, 50.0, [4640]),
+        ("gemma2-2b global", 5120, 8, 4, 256, None, 50.0, [4640]),
+        ("gemma-2b", 8192, 8, 1, 256, None, None, [7000]),
+        ("qwen1.5-4b", 4096, 20, 20, 128, None, None, [3500]),
+        ("gemma2-2b local B=3", 5120, 8, 4, 256, 4096, 50.0, [70, 4100, 5119]),
+    ]
+    # in a model step each layer's cache is read once, so every timed run
+    # starts with a cold L2: 64 MB written in between (the L2 holds 50 MB)
+    scrub = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
+    flush = scrub.zero_
+    headline = None
+    for label, s, n, k, h, win, cap, pos_list in cases:
+        b = len(pos_list)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            amp = BF16_QK_STD if dtype == torch.bfloat16 else 1.0
+            q = (amp * torch.randn((b, n, h), generator=gen,
+                                   device="cuda")).to(dtype)
+            kc = (amp * torch.randn((b, s, k, h), generator=gen,
+                                    device="cuda")).to(dtype)
+            vc = torch.randn((b, s, k, h), generator=gen,
+                             device="cuda").to(dtype)
+            args = dict(window=win, softcap=cap)
+            run = lambda kk=kc, p=pos, **kw: ops.decode_attention(
+                q, kk, vc, p, **{**args, **kw})
+            plain = lambda: ref.decode_attention(q, kc, vc, pos, **args)
+            name = f"decode {label} {dname}"
+            got = run()
+            torch.cuda.synchronize()
+            rel = None
+            if dname == "float32":
+                err = compare(name, got, plain(), TOL[dname])
+            else:
+                def want_of(kk):
+                    return ref.decode_attention(q.float(), kk.float(),
+                                                vc.float(), pos, **args)
+                want = want_of(kc)
+                err, rel = check_bf16(name, got, want)
+                faults = [("no softcap", kc, want, dict(softcap=None))] \
+                    if cap else []
+                if win and max(pos_list) >= win:
+                    faults.append(("no window", kc, want, dict(window=None)))
+                # pos off by one: the newest row, and the stale row after it,
+                # are made the best match of each group's first query head,
+                # so that reading one row too few or too many shows
+                planted = kc.clone()
+                for i, p in enumerate(pos_list):
+                    for r in (p, p + 1):
+                        if r < s:
+                            planted[i, r] = q[i].reshape(k, n // k, h)[:, 0]
+                want_p = want_of(planted)
+                check_bf16(f"{name} (planted rows)", run(kk=planted), want_p)
+                for d in (-1, 1):
+                    faults.append((f"pos {d:+d}", planted, want_p,
+                                   dict(p=pos + d)))
+                for what, kk, w, kw in faults:
+                    r = rel_l2(run(kk=kk, **kw), w)
+                    log(f"[decode] decode_attention {label} bf16 with {what}: "
+                        f"relative L2 err {r} (gate {BF16_REL_L2})")
+                    if r <= BF16_REL_L2:
+                        raise AssertionError(f"{name}: the gate does not "
+                                             f"reject the kernel with {what}")
+                del want, want_p, planted
+            del got
+            ms = time_ms(run, reps=20, flush=flush)
+            plain_ms = time_ms(plain, reps=5, flush=flush)
+            flops = dec.flops(pos_list, s, n, h, win)
+            nbytes = dec.hbm_bytes(pos_list, s, n, k, h, win, q.element_size(),
+                                   kc.element_size())
+            bound_ms, bound_by = bound(flops, nbytes)
+            lib_ms = None
+            if b == 1:
+                # yardstick the port never calls: SDPA over the live slice of
+                # the cache, q of length 1, GQA, no softcap
+                p = pos_list[0]
+                lo = max(0, p - win + 1) if win else 0
+                qt = q[:, :, None, :].contiguous()
+                kt = kc[:, lo:p + 1].transpose(1, 2).contiguous()
+                vt = vc[:, lo:p + 1].transpose(1, 2).contiguous()
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=True), reps=20, flush=flush)
+                del qt, kt, vt
+            log(f"[decode] decode_attention {label} {dname} B={b} S={s} N={n} "
+                f"K={k} H={h} window={win} softcap={cap} pos={pos_list}: "
+                f"max_abs_err={err} rel_l2_err={rel} ms={ms} "
+                f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}, "
+                f"{nbytes} bytes, {flops} flops) library_ms={lib_ms}")
+            if label == "gemma2-2b global" and dname == "bfloat16":
+                headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=lib_ms)
+            del q, kc, vc
+            torch.cuda.empty_cache()
+    del scrub
+    return headline
+
+
+def check_decode_models(torch) -> None:
+    """The four architectures at smoke width in float32: prefill and four
+    decode steps on the card (kernels) against the CPU (plain versions), the
+    logits of every step and every cache leaf. The tokens fed to both are
+    the CPU's greedy choices, and the two sequences write at different
+    positions."""
+    import numpy as np
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as M
+
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 256, (2, 40)).astype(np.int32))
+    for arch in ("gemma-2b", "qwen1.5-4b", "gemma2-2b", "mamba2-130m"):
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        p_cpu = M.init_params(gen, cfg, "cpu")
+        runs, feed = {}, []
+        for dev in ("cpu", "cuda"):
+            p = p_cpu if dev == "cpu" else M.tree_map(lambda t: t.to(dev), p_cpu)
+            with torch.inference_mode():
+                cache = M.init_cache(cfg, 2, 48, torch.float32, dev)
+                logits, cache = M.prefill(p, cfg, tokens.to(dev), cache)
+                outs = [logits[:, -1]]
+                for i in range(4):
+                    if dev == "cpu":
+                        feed.append(outs[-1].argmax(-1).to(torch.int32)[:, None])
+                    pos = torch.tensor([40 + i, 37 + i], dtype=torch.int32,
+                                       device=dev)
+                    logits, cache = M.decode_step(p, cfg, feed[i].to(dev),
+                                                  cache, pos)
+                    outs.append(logits[:, 0])
+            runs[dev] = (outs, cache)
+        err = 0.0
+        for i, (got, want) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+            err = max(err, compare(f"decode {arch} step {i} (card vs CPU)",
+                                   got.cpu(), want, 1e-4))
+        leaves_cpu, leaves_gpu = [], []
+        M.tree_map(leaves_cpu.append, runs["cpu"][1])
+        M.tree_map(leaves_gpu.append, runs["cuda"][1])
+        for i, (got, want) in enumerate(zip(leaves_gpu, leaves_cpu)):
+            err = max(err, compare(f"decode {arch} cache leaf {i} (card vs "
+                                   f"CPU)", got.cpu(), want, 1e-4))
+        log(f"[decode] {arch} smoke fp32: prefill S=40 + 4 steps, card "
+            f"(kernels) vs CPU (plain), logits and {len(leaves_cpu)} cache "
+            f"leaves: max_abs_err={err}")
+
+
+def decode_full_width(torch, arch: str, prompt: int, steps: int,
+                      max_seq: int, seed: int) -> dict:
+    """``prefill`` over a prompt, then greedy ``decode_step``s, of one
+    architecture at its published config in bf16 (weights from a seed).
+
+    Every decode_attention call of the first and last step is held, on the
+    inputs the model gave it, against the plain version in float32 (gate
+    BF16_REL_L2), and its arguments are checked. The decoded logits are then
+    held against forward on the extended tokens: both bf16 paths round the
+    same function at other points, so the decode path must be no further from
+    the float32 forward (on the same bf16-valued weights) than twice the bf16
+    forward is. Returns the step times and the launch counts of the run.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_compute_dtype
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd as ssd_mod
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = to_compute_dtype(M.init_params(gen, cfg, "cuda"),
+                              M.compute_dtype(cfg))
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    kinds = [kind for _ in range(M.num_groups(cfg))
+             for kind in M.group_pattern(cfg)]
+    attn_layers = sum(kind != "mamba" for kind in kinds)
+    calls = []
+    real = ops.decode_attention
+
+    def tapped(q, k_cache, v_cache, pos, **kw):
+        out = real(q, k_cache, v_cache, pos, **kw)
+        want = ref.decode_attention(q.float(), k_cache.float(),
+                                    v_cache.float(), pos, **kw)
+        calls.append(((tuple(q.shape), tuple(k_cache.shape), q.dtype,
+                       k_cache.dtype, kw["window"], kw["softcap"],
+                       pos.tolist()), rel_l2(out, want)))
+        return out
+
+    with torch.inference_mode():
+        cache = M.init_cache(cfg, 1, max_seq, torch.bfloat16, "cuda")
+        fa.launches = ssd_mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = M.prefill(params, cfg, tokens, cache)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = {"flash_attention": fa.launches,
+                            "ssd": ssd_mod.launches}
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        del logits
+        fed, outs, step_ms = [], [], []
+        dec.launches = 0
+        for i in range(steps):
+            tap = attn_layers and i in (0, steps - 1)
+            pos = torch.full((1,), prompt + i, dtype=torch.int32,
+                             device="cuda")
+            if tap:
+                calls.clear()
+                ops.decode_attention = tapped
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                logits, cache = M.decode_step(params, cfg, nxt, cache, pos)
+            finally:
+                ops.decode_attention = real
+            torch.cuda.synchronize()
+            if not tap:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            fed.append(nxt)
+            outs.append(logits[:, 0])
+            nxt = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
+            if tap:
+                hd = cfg.resolved_head_dim
+                expect = [((1, cfg.num_heads, hd),
+                           (1, max_seq, cfg.num_kv_heads, hd),
+                           torch.bfloat16, torch.bfloat16,
+                           cfg.local_window if kind == "local" else None,
+                           cfg.attn_logit_softcap, [prompt + i])
+                          for kind in kinds if kind != "mamba"]
+                seen = [c[0] for c in calls]
+                if seen != expect:
+                    raise AssertionError(f"{arch} step {i}: decode calls "
+                                         f"{seen}, expected {expect}")
+                worst = max(c[1] for c in calls)
+                log(f"[decode] {arch} step {i} (pos {prompt + i}): "
+                    f"{len(calls)} decode_attention calls as the config sets "
+                    f"them; the worst relative L2 err against the float32 "
+                    f"plain version on the same inputs {worst} (gate "
+                    f"{BF16_REL_L2})")
+                if worst > BF16_REL_L2:
+                    raise AssertionError(f"{arch}: a decode call off by {worst}")
+        launches = dec.launches
+        if launches != steps * attn_layers:
+            raise AssertionError(f"{arch}: {launches} decode_attention "
+                                 f"launches, expected {steps} steps x "
+                                 f"{attn_layers} attention layers")
+        dec_logits = torch.cat(outs)                       # [steps, V]
+        if not torch.isfinite(dec_logits).all():
+            raise AssertionError(f"{arch}: non-finite decode logits")
+        ext = torch.cat([tokens] + fed, dim=1)
+        # the decoded positions only (a clone lets the full logits go)
+        fwd = M.forward(params, cfg, ext)[0][0, prompt:].clone()
+        p32 = M.tree_map(lambda t: t.float(), params)
+        want = M.forward(p32, dataclasses.replace(cfg, dtype="float32"), ext,
+                         "torch", "torch")[0][0, prompt:].clone()
+        del p32
+    kern = rel_l2(dec_logits, want)
+    plain = rel_l2(fwd, want)
+    agree = int((dec_logits.argmax(-1) == fwd.argmax(-1)).sum())
+    gate = 2 * plain
+    log(f"[decode] {arch} bf16 prompt {prompt} + {steps} steps: relative L2 "
+        f"err of the decoded logits against the float32 forward on the "
+        f"extended tokens {kern}, the bf16 forward's {plain} (gate {gate}); "
+        f"decode vs bf16 forward {rel_l2(dec_logits, fwd)}, greedy tokens "
+        f"agreeing {agree}/{steps}")
+    if not kern <= gate:
+        raise AssertionError(f"{arch}: decoded logits off by {kern}, above "
+                             f"{gate}")
+    med = statistics.median(step_ms)
+    log(f"[decode] {arch} bf16: prefill of {prompt} tokens {prefill_s * 1e3} "
+        f"ms (launches {prefill_launches}); median {med} ms per decoded token "
+        f"over {len(step_ms)} untapped steps (min {min(step_ms)}, max "
+        f"{max(step_ms)}); decode_attention launches {launches} = {steps} x "
+        f"{attn_layers}")
+    step = lambda: M.decode_step(params, cfg, nxt, cache, pos)
+    profile_fn(torch, f"{arch} decode_step at pos {prompt + steps - 1}", step)
+    del params, cache, dec_logits, fwd, want
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms_per_token=med)
+
+
+def decode(torch, gen):
+    headline = check_decode_kernel(torch, gen)
+    check_decode_models(torch)
+    g2 = decode_full_width(torch, "gemma2-2b", prompt=4608, steps=32,
+                           max_seq=5120, seed=5)
+    mb = decode_full_width(torch, "mamba2-130m", prompt=1024, steps=32,
+                           max_seq=1056, seed=6)
+    log(f"[decode] median ms per decoded token: gemma2-2b "
+        f"{g2['ms_per_token']}, mamba2-130m {mb['ms_per_token']}")
+    return headline, g2["launches"] + mb["launches"]
 
 
 def main() -> int:
@@ -608,8 +945,11 @@ def main() -> int:
     # 4. model: card against CPU
     check_models(torch)
 
-    # 5. serving
+    # 5. serving (and 6. its profile)
     launches = serve(torch)
+
+    # 7. decode
+    dec_headline, launches["decode_attention"] = decode(torch, gen)
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -620,6 +960,10 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/ssd.cu",
              replaces="src/repro/kernels/ssd.py:114",
              launches=launches["ssd"], **ssd),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:128",
+             launches=launches["decode_attention"], **dec_headline),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,6 +3,11 @@
 Both keep the same plain-dict layout: the same names, the same shapes and
 ``[in, out]`` einsum layouts, and the stacked group axis at the front of
 every leaf of ``params["blocks"]``. So a JAX tree converts leaf by leaf.
+
+The same holds for the decode cache: ``from_jax_params`` carries a JAX cache
+tree (leaves ``k``, ``v``, ``conv``, ``ssm``, none of them in
+``COMPUTE_LEAVES``) across as it is, bfloat16 KV caches included, so both
+packages can decode from one cache.
 """
 from __future__ import annotations
 
@@ -31,8 +36,15 @@ def from_jax_params(tree: dict, device: str | torch.device = "cuda",
     With ``dtype``, the leaves in ``COMPUTE_LEAVES`` are cast to it once:
     the same cast the forward pass makes on every call."""
     dev = resolve_device(device)
-    params = tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
+    params = tree_map(lambda a: _tensor(np.array(a)).to(dev), tree)
     return params if dtype is None else to_compute_dtype(params, dtype)
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    # numpy has no bfloat16 of its own (JAX's is ml_dtypes'): cross as bits
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def to_compute_dtype(params: dict, dtype: torch.dtype) -> dict:

@@ -122,6 +122,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i, i,           # Bsz, S, H, P, N, chunk
         p]                          # cudaStream_t
     lib.repro_ssd_fwd.restype = i
+    lib.repro_decode_attention_fwd.argtypes = [
+        p, p, p, p, p,              # q, k cache, v cache, pos (int32), out
+        p, p,                       # split partials: acc, (m, l)
+        i, i,                       # q dtype, cache dtype: 0 float32, 1 bfloat16
+        i, i, i, i, i,              # B, S, N, K, H
+        i, i,                       # splits, keys per tile
+        f, i, f,                    # scale, window (<=0: none), softcap (<=0: none)
+        p]                          # cudaStream_t
+    lib.repro_decode_attention_fwd.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

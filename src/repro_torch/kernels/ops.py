@@ -5,7 +5,8 @@ CPU it runs the plain PyTorch version from ``ref`` with the JAX package's
 padding to tile boundaries, on CUDA it launches the hand-written kernel,
 which raises on anything it does not take. The flash kernel masks ragged
 sequence ends itself, so only the SSD scan is padded (to its chunk) on
-CUDA. A CUDA tensor never falls back to the plain version.
+CUDA, and the decode kernel reads only the live rows of the cache, so it is
+never padded. A CUDA tensor never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import decode_attention as _dec
 from . import flash_attention as _fa
 from . import ref
 from . import ssd as _ssd
@@ -64,6 +66,29 @@ def flash_attention(
                         _pad_seq(v, 1, bk), scale=scale, causal=causal,
                         window=window, softcap=softcap)
     return out[:, :sq]
+
+
+def decode_attention(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+    pos: torch.Tensor, *,
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    block_k: int = _dec.DEFAULT_BLOCK_K,
+) -> torch.Tensor:
+    """[B, N, H] x cache [B, S, K, H]^2 -> [B, N, H], keys up to ``pos``.
+
+    ``block_k`` sets the padding of the plain version, as the JAX package's
+    tile size does (padded keys lie past every ``pos``); the CUDA kernel
+    keeps its own tiles and masks the ragged end itself.
+    """
+    if _on_cuda(q, k_cache, v_cache, pos):
+        return _dec.decode_attention(q, k_cache, v_cache, pos, scale=scale,
+                                     window=window, softcap=softcap)
+    bk = min(block_k, k_cache.shape[1])
+    return ref.decode_attention(q, _pad_seq(k_cache, 1, bk),
+                                _pad_seq(v_cache, 1, bk), pos, scale=scale,
+                                window=window, softcap=softcap)
 
 
 def pad_to_chunk(chunk: int, x: torch.Tensor, dt: torch.Tensor,

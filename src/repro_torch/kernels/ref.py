@@ -62,6 +62,44 @@ def attention(
 
 
 # ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+
+def decode_attention(
+    q: torch.Tensor,           # [B, N, H]: one query token per sequence
+    k_cache: torch.Tensor,     # [B, S, K, H]
+    v_cache: torch.Tensor,     # [B, S, K, H]
+    pos: torch.Tensor,         # [B] int: index of the newest token
+    *,
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token decode attention over a KV cache: keys
+    ``[max(0, pos - window + 1), pos]`` of each sequence, fp32 logits with
+    the softcap before the mask, probabilities cast to q's dtype. A cache
+    in another dtype than q is promoted, as JAX's einsum promotes it."""
+    n = q.shape[1]
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    q_dtype = q.dtype
+    dtype = torch.promote_types(q.dtype, k_cache.dtype)
+    q = q.to(dtype)
+    kh = _repeat_kv(k_cache, n).to(dtype)
+    vh = _repeat_kv(v_cache, n).to(dtype)
+    logits = torch.einsum("bnh,bknh->bnk", q, kh).float() * scale
+    logits = _softcap(logits, softcap)
+    ki = torch.arange(k_cache.shape[1], device=q.device)[None, None, :]
+    p = pos.to(q.device).long()[:, None, None]
+    mask = ki <= p
+    if window is not None:
+        mask = mask & (ki > p - window)
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q_dtype).to(dtype)
+    return torch.einsum("bnk,bknh->bnh", probs, vh)
+
+
+# ---------------------------------------------------------------------------
 # Mamba2 SSD (sequential scan: the definition)
 # ---------------------------------------------------------------------------
 

@@ -1,13 +1,21 @@
 """Multi-head attention: MHA / GQA / MQA with RoPE, logit softcap,
-sliding-window (local) masking and optional QKV bias (port of
-``repro/models/attention.py``: ``attend_full`` and ``_project_qkv``).
+sliding-window (local) masking and optional QKV bias, and the KV cache
+(port of ``repro/models/attention.py``: ``attend_full``, ``attend_prefill``,
+``attend_decode``, the cache functions and ``_project_qkv``).
 
-``impl="kernel"`` goes through ``kernels.ops.flash_attention`` (the CUDA
-kernel on CUDA tensors, its plain version on the CPU); ``impl="torch"``
-is the JAX package's XLA path written in PyTorch. The kernel does the
+``impl="kernel"`` goes through ``kernels.ops`` (``flash_attention`` for a
+whole sequence, ``decode_attention`` for one token: the CUDA kernels on
+CUDA tensors, their plain versions on the CPU); ``impl="torch"`` is the JAX
+package's XLA path written in PyTorch. The kernels do the
 probability-times-V product in fp32, the torch path casts the
 probabilities to the compute dtype first (as the XLA path does), so the two
 agree to fp32 rounding in float32 and to bf16 rounding (2e-2) in bfloat16.
+
+The cache is updated in place: ``update_cache``, ``fill_cache``,
+``attend_prefill`` and ``attend_decode`` write into the tensors of the dict
+they are given and return that same dict, where the reference returns a new
+cache. A copy per decoded token would move the whole cache (545 MB for
+gemma2-2b at 5120 positions in bf16), more than the step itself reads.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from .. import resolve_device
 from ..kernels import ops as kops
 from . import layers
 from .layers import Tensor, dense_init
@@ -93,22 +102,111 @@ def _causal_mask(s_q: int, s_k: int, window: Optional[int],
     return m
 
 
+def _attend(cfg: AttnConfig, q: Tensor, k: Tensor, v: Tensor,
+            impl: str) -> Tensor:
+    """Causal attention of q [B,S,N,H] over k, v [B,S,K,H] from position 0."""
+    if impl == "kernel":
+        return kops.flash_attention(q, k, v, scale=cfg.resolved_scale,
+                                    window=cfg.window,
+                                    softcap=cfg.logit_softcap)
+    if impl != "torch":
+        raise ValueError(f"attention impl {impl!r}: 'kernel' or 'torch'")
+    k = _repeat_kv(k, cfg.num_heads)
+    v = _repeat_kv(v, cfg.num_heads)
+    logits = torch.einsum("bqnh,bknh->bnqk", q, k) * cfg.resolved_scale
+    logits = layers.softcap(logits.float(), cfg.logit_softcap)
+    mask = _causal_mask(q.shape[1], k.shape[1], cfg.window, q.device)
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bnqk,bknh->bqnh", probs, v)
+
+
+def _out_proj(params: dict, o: Tensor, dtype: torch.dtype) -> Tensor:
+    return torch.einsum("bqnh,nho->bqo", o, params["wo"].to(dtype))
+
+
 def attend_full(params: dict, cfg: AttnConfig, x: Tensor, positions: Tensor,
                 impl: str = "kernel") -> Tensor:
     """Causal self-attention over the whole sequence. x: [B, S, D]."""
     q, k, v = _project_qkv(params, cfg, x, positions)
+    return _out_proj(params, _attend(cfg, q, k, v, impl), x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache + decode attention
+# ---------------------------------------------------------------------------
+
+
+def init_cache(batch: int, max_seq: int, cfg: AttnConfig,
+               dtype: torch.dtype = torch.bfloat16,
+               device: str | torch.device = "cuda") -> dict:
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def update_cache(cache: dict, k_new: Tensor, v_new: Tensor,
+                 pos: Tensor) -> dict:
+    """Write one new token per sequence, in place. k_new: [B, 1, K, H],
+    pos: [B]. Returns ``cache``."""
+    idx = torch.arange(k_new.shape[0], device=k_new.device)
+    p = pos.long()
+    cache["k"][idx, p] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][idx, p] = v_new[:, 0].to(cache["v"].dtype)
+    return cache
+
+
+def fill_cache(cache: dict, k_new: Tensor, v_new: Tensor) -> dict:
+    """Prefill: write the first S positions wholesale, in place.
+    k_new: [B, S, K, H]. Returns ``cache``."""
+    s = k_new.shape[1]
+    cache["k"][:, :s] = k_new.to(cache["k"].dtype)
+    cache["v"][:, :s] = v_new.to(cache["v"].dtype)
+    return cache
+
+
+def attend_prefill(params: dict, cfg: AttnConfig, x: Tensor,
+                   positions: Tensor, cache: dict,
+                   impl: str = "kernel") -> tuple[Tensor, dict]:
+    """Prefill: full attention over the prompt, which starts at position
+    0, AND fill the cache (in the cache's dtype; the attention itself runs
+    on the unrounded k and v, as the reference's does)."""
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    cache = fill_cache(cache, k, v)
+    return _out_proj(params, _attend(cfg, q, k, v, impl), x.dtype), cache
+
+
+def attend_decode(params: dict, cfg: AttnConfig, x: Tensor, cache: dict,
+                  pos: Tensor, impl: str = "kernel") -> tuple[Tensor, dict]:
+    """One-token decode. x: [B, 1, D], pos: [B] (current write index).
+
+    Writes the token's k and v at ``pos`` into ``cache`` (in place) and
+    attends over keys ``[max(0, pos - window + 1), pos]``. Returns
+    (out [B, 1, D], cache). The softmax statistics are fp32.
+    """
+    q, k_new, v_new = _project_qkv(params, cfg, x, pos[:, None])
+    cache = update_cache(cache, k_new, v_new, pos)
     if impl == "kernel":
-        o = kops.flash_attention(q, k, v, scale=cfg.resolved_scale,
-                                 window=cfg.window, softcap=cfg.logit_softcap)
+        o = kops.decode_attention(q[:, 0], cache["k"], cache["v"], pos,
+                                  scale=cfg.resolved_scale, window=cfg.window,
+                                  softcap=cfg.logit_softcap)[:, None]
     elif impl == "torch":
-        k = _repeat_kv(k, cfg.num_heads)
-        v = _repeat_kv(v, cfg.num_heads)
-        logits = torch.einsum("bqnh,bknh->bnqk", q, k) * cfg.resolved_scale
+        # a cache in another dtype than q is promoted, as XLA promotes it
+        dtype = torch.promote_types(q.dtype, cache["k"].dtype)
+        kh = _repeat_kv(cache["k"], cfg.num_heads).to(dtype)
+        vh = _repeat_kv(cache["v"], cfg.num_heads).to(dtype)
+        logits = torch.einsum("bqnh,bknh->bnqk", q.to(dtype), kh) \
+            * cfg.resolved_scale
         logits = layers.softcap(logits.float(), cfg.logit_softcap)
-        mask = _causal_mask(q.shape[1], k.shape[1], cfg.window, x.device)
-        logits = torch.where(mask[None, None], logits, NEG_INF)
-        probs = torch.softmax(logits, dim=-1).to(q.dtype)
-        o = torch.einsum("bnqk,bknh->bqnh", probs, v)
+        ki = torch.arange(kh.shape[1], device=q.device)[None, None, None, :]
+        p = pos.long()[:, None, None, None]
+        mask = ki <= p
+        if cfg.window is not None:
+            mask = mask & (ki > p - cfg.window)
+        logits = torch.where(mask, logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype).to(dtype)
+        o = torch.einsum("bnqk,bknh->bqnh", probs, vh)
     else:
         raise ValueError(f"attention impl {impl!r}: 'kernel' or 'torch'")
-    return torch.einsum("bqnh,nho->bqo", o, params["wo"].to(x.dtype))
+    return _out_proj(params, o, x.dtype), cache

@@ -1,18 +1,25 @@
 """The LM: composes attention and SSD blocks into an architecture (port of
-``repro/models/model.py``: config plumbing, ``init_params`` and
-``forward``).
+``repro/models/model.py``: config plumbing, ``init_params``, ``forward``,
+the stacked decode cache, ``prefill`` and ``decode_step``).
 
 Params are plain dicts of tensors with the JAX package's names; the layer
 groups of ``params["blocks"]`` are stacked along a leading group axis, as
 ``jax.lax.scan`` wants them there, and run here as a Python loop
 (``scan_layers`` and ``remat`` have no numeric effect). ``LM`` is a thin
 ``nn.Module`` veneer over the functions.
+
+The decode cache mirrors the reference's tree (per block of a group
+``{"k", "v"}`` or ``{"conv", "ssm"}``, each leaf stacked along the group
+axis), but ``prefill`` and ``decode_step`` write it in place and return the
+dict they were given: a cache that a step has consumed holds that step's
+result, and is not the cache from before it.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
@@ -110,14 +117,13 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
 
 
 def _apply_block(params: dict, cfg: ArchConfig, kind: str, x: Tensor,
-                 positions: Tensor, attn_impl: str, ssm_impl: str) -> Tensor:
+                 mix: Callable[[Tensor], Tensor]) -> Tensor:
+    """One block around its mixer ``mix`` (attention or the SSD block,
+    normed input -> output): pre-norm, residual, and for attention blocks
+    the MLP and gemma2's post-norms."""
     if kind == "mamba":
-        h = layers.rmsnorm(params["ln"], x)
-        return x + ssm.ssm_apply(params["ssm"], ssm_cfg_for(cfg), h,
-                                 impl=ssm_impl)
-    h = layers.rmsnorm(params["ln1"], x)
-    a = attn.attend_full(params["attn"], attn_cfg_for(cfg, kind), h,
-                         positions, impl=attn_impl)
+        return x + mix(layers.rmsnorm(params["ln"], x))
+    a = mix(layers.rmsnorm(params["ln1"], x))
     if cfg.post_norms:
         a = layers.rmsnorm(params["post_ln1"], a)
     x = x + a
@@ -126,6 +132,27 @@ def _apply_block(params: dict, cfg: ArchConfig, kind: str, x: Tensor,
     if cfg.post_norms:
         m = layers.rmsnorm(params["post_ln2"], m)
     return x + m
+
+
+def _run_blocks(params: dict, cfg: ArchConfig, x: Tensor, mix: Callable,
+                cache: Optional[dict] = None) -> Tensor:
+    """Every block in order; ``mix(kind, block_params, block_cache, h)``
+    runs a block's mixer, with ``block_cache`` a view into ``cache`` (None
+    without one)."""
+    for gi in range(num_groups(cfg)):
+        gparams = tree_map(lambda p: p[gi], params["blocks"])
+        gcache = tree_map(lambda c: c[gi], cache) if cache is not None else None
+        for i, kind in enumerate(group_pattern(cfg)):
+            bp = gparams[str(i)]
+            bc = gcache[str(i)] if gcache is not None else None
+            x = _apply_block(bp, cfg, kind, x,
+                             lambda h: mix(kind, bp, bc, h))
+    return x
+
+
+def _logits(params: dict, cfg: ArchConfig, x: Tensor) -> Tensor:
+    x = layers.rmsnorm(params["final_norm"], x)
+    return layers.unembed(params["embed"], x, cfg.final_logit_softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -172,14 +199,110 @@ def forward(params: dict, cfg: ArchConfig, tokens: Tensor,
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
     x = layers.embed_tokens(params["embed"], tokens, cfg.embed_scale,
                             compute_dtype(cfg))
-    for gi in range(num_groups(cfg)):
-        gparams = tree_map(lambda p: p[gi], params["blocks"])
-        for i, kind in enumerate(group_pattern(cfg)):
-            x = _apply_block(gparams[str(i)], cfg, kind, x, positions,
-                             attn_impl, ssm_impl)
-    x = layers.rmsnorm(params["final_norm"], x)
-    logits = layers.unembed(params["embed"], x, cfg.final_logit_softcap)
-    return logits, torch.zeros((), dtype=torch.float32, device=dev)
+
+    def mix(kind, bp, _, h):
+        if kind == "mamba":
+            return ssm.ssm_apply(bp["ssm"], ssm_cfg_for(cfg), h, impl=ssm_impl)
+        return attn.attend_full(bp["attn"], attn_cfg_for(cfg, kind), h,
+                                positions, impl=attn_impl)
+    x = _run_blocks(params, cfg, x, mix)
+    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32,
+                                                device=dev)
+
+
+# ---------------------------------------------------------------------------
+# decode cache
+# ---------------------------------------------------------------------------
+
+
+def _group_cache(cfg: ArchConfig, batch: int, max_seq: int,
+                 dtype: torch.dtype, device: torch.device) -> dict:
+    cache: dict = {}
+    for i, kind in enumerate(group_pattern(cfg)):
+        if kind == "mamba":
+            cache[str(i)] = ssm.init_state(batch, ssm_cfg_for(cfg),
+                                           device=device)
+        else:
+            cache[str(i)] = attn.init_cache(batch, max_seq,
+                                            attn_cfg_for(cfg, kind), dtype,
+                                            device)
+    return cache
+
+
+def _stack_cache(cfg: ArchConfig, group_cache: dict) -> dict:
+    """Every leaf repeated along a leading group axis. ``repeat`` allocates
+    each group its own memory: the reference's ``broadcast_to`` has a torch
+    twin, ``expand``, that would make every group one cache once the decode
+    writes in place."""
+    g = num_groups(cfg)
+    return tree_map(lambda x: x[None].repeat(g, *([1] * x.ndim)), group_cache)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: str | torch.device = "cuda") -> dict:
+    """The zeroed decode cache on ``device`` (CUDA unless the caller asks
+    for the CPU): KV caches in ``dtype``, SSM states in float32."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    return _stack_cache(cfg, _group_cache(cfg, batch, max_seq, dtype, dev))
+
+
+# ---------------------------------------------------------------------------
+# prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def ssm_prefill(params: dict, scfg: ssm.SSMConfig, u: Tensor,
+                impl: str = "kernel") -> tuple[Tensor, dict]:
+    """Mamba2 full-sequence apply that also returns the decode state: the
+    last K-1 pre-conv inputs (left-padded with zeros when the prompt is
+    shorter) in fp32, and the scan's final state."""
+    out, fin, xbc_pre = ssm.ssm_full(params, scfg, u, impl)
+    k, s = scfg.conv_kernel, u.shape[1]
+    conv = F.pad(xbc_pre, (0, 0, max(k - 1 - s, 0), 0))[:, -(k - 1):, :]
+    return out, {"conv": conv.float(), "ssm": fin}
+
+
+def prefill(params: dict, cfg: ArchConfig, tokens: Tensor, cache: dict,
+            attn_impl: str = "kernel",
+            ssm_impl: str = "kernel") -> tuple[Tensor, dict]:
+    """Run the prompt, fill ``cache`` in place. Returns (logits [B,S,V]
+    f32, cache)."""
+    _check_supported(cfg)
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device)[None].expand(b, s)
+    x = layers.embed_tokens(params["embed"], tokens, cfg.embed_scale,
+                            compute_dtype(cfg))
+
+    def mix(kind, bp, bc, h):
+        if kind == "mamba":
+            y, st = ssm_prefill(bp["ssm"], ssm_cfg_for(cfg), h, ssm_impl)
+            bc["conv"].copy_(st["conv"])
+            bc["ssm"].copy_(st["ssm"])
+            return y
+        return attn.attend_prefill(bp["attn"], attn_cfg_for(cfg, kind), h,
+                                   positions, bc, impl=attn_impl)[0]
+    x = _run_blocks(params, cfg, x, mix, cache)
+    return _logits(params, cfg, x), cache
+
+
+def decode_step(params: dict, cfg: ArchConfig, tokens: Tensor, cache: dict,
+                pos: Tensor, attn_impl: str = "kernel") -> tuple[Tensor, dict]:
+    """One decode step. tokens: [B, 1], pos: [B] (write index). Advances
+    ``cache`` in place. Returns (logits [B, 1, V] f32, cache)."""
+    _check_supported(cfg)
+    x = layers.embed_tokens(params["embed"], tokens, cfg.embed_scale,
+                            compute_dtype(cfg))
+
+    def mix(kind, bp, bc, h):
+        if kind == "mamba":
+            return ssm.ssm_decode(bp["ssm"], ssm_cfg_for(cfg), h, bc)[0]
+        return attn.attend_decode(bp["attn"], attn_cfg_for(cfg, kind), h, bc,
+                                  pos, impl=attn_impl)[0]
+    x = _run_blocks(params, cfg, x, mix, cache)
+    return _logits(params, cfg, x), cache
 
 
 # ---------------------------------------------------------------------------
@@ -208,3 +331,16 @@ class LM(nn.Module):
     def forward(self, tokens: Tensor) -> tuple[Tensor, Tensor]:
         return forward(self.params, self.cfg, tokens, self.attn_impl,
                        self.ssm_impl)
+
+    def init_cache(self, batch: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+        return init_cache(self.cfg, batch, max_seq, dtype, self.device)
+
+    def prefill(self, tokens: Tensor, cache: dict) -> tuple[Tensor, dict]:
+        return prefill(self.params, self.cfg, tokens, cache, self.attn_impl,
+                       self.ssm_impl)
+
+    def decode_step(self, tokens: Tensor, cache: dict,
+                    pos: Tensor) -> tuple[Tensor, dict]:
+        return decode_step(self.params, self.cfg, tokens, cache, pos,
+                           self.attn_impl)

@@ -1,5 +1,6 @@
 """Mamba2 (SSD) block: in_proj -> causal conv -> selective scan -> gated out
-(port of ``repro/models/ssm.py``: ``ssm_apply`` and its helpers).
+(port of ``repro/models/ssm.py``: ``ssm_apply``, ``init_state``,
+``ssm_decode`` and their helpers).
 
   u [B,S,D] --in_proj--> [z (d_in) | x (d_in) | B (N) | C (N) | dt (H)]
   (x|B|C) -> causal depthwise conv1d (K=4) -> silu
@@ -9,6 +10,10 @@
 
 x stays in the compute dtype while B, C and dt are fp32, so the SSD kernel
 takes mixed dtypes, as the Pallas one does.
+
+The decode state is the last K-1 pre-conv inputs (fp32) and the SSM state
+[B,H,N,P] (fp32). ``ssm_decode`` updates it in place and returns the dict
+it was given, as the KV cache is (``attention.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from .layers import Tensor, dense_init, rmsnorm, rmsnorm_init
@@ -110,21 +116,77 @@ def _run_ssd(cfg: SSMConfig, xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor,
     return y[:, :s], fin
 
 
-def ssm_apply(params: dict, cfg: SSMConfig, u: Tensor,
-              impl: str = "kernel") -> Tensor:
-    """Full-sequence Mamba2 block. u: [B, S, D] -> [B, S, D]."""
+def ssm_full(params: dict, cfg: SSMConfig, u: Tensor,
+             impl: str = "kernel") -> tuple[Tensor, Tensor, Tensor]:
+    """Full-sequence Mamba2 block. u: [B, S, D] -> (out [B, S, D], the
+    final SSM state [B,H,N,P] fp32, the pre-conv (x|B|C) [B, S, C])."""
     b, s, _ = u.shape
     dtype = u.dtype
     zxbcdt = torch.einsum("bsd,dk->bsk", u, params["in_proj"].to(dtype))
-    z, xbc, dt = _split_proj(cfg, zxbcdt)
-    xbc = F.silu(_causal_conv(params, xbc))
+    z, xbc_pre, dt = _split_proj(cfg, zxbcdt)
+    xbc = F.silu(_causal_conv(params, xbc_pre))
     x = xbc[..., : cfg.d_inner]
     bmat = xbc[..., cfg.d_inner: cfg.d_inner + cfg.state].float()
     cmat = xbc[..., cfg.d_inner + cfg.state:].float()
     dt = F.softplus(dt.float() + params["dt_bias"][None, None, :])
     a = -torch.exp(params["A_log"])
     xh = x.reshape(b, s, cfg.heads, cfg.head_dim)
-    y, _ = _run_ssd(cfg, xh, dt, a, bmat, cmat, params["D"], impl)
+    y, fin = _run_ssd(cfg, xh, dt, a, bmat, cmat, params["D"], impl)
     y = y.reshape(b, s, cfg.d_inner)
     y = rmsnorm(params["norm"], y * F.silu(z))
-    return torch.einsum("bsk,kd->bsd", y, params["out_proj"].to(dtype))
+    out = torch.einsum("bsk,kd->bsd", y, params["out_proj"].to(dtype))
+    return out, fin, xbc_pre
+
+
+def ssm_apply(params: dict, cfg: SSMConfig, u: Tensor,
+              impl: str = "kernel") -> Tensor:
+    """Full-sequence Mamba2 block. u: [B, S, D] -> [B, S, D]."""
+    return ssm_full(params, cfg, u, impl)[0]
+
+
+# ---------------------------------------------------------------------------
+# decode step with carried state
+# ---------------------------------------------------------------------------
+
+
+def init_state(batch: int, cfg: SSMConfig, dtype: torch.dtype = torch.float32,
+               device: str | torch.device = "cuda") -> dict:
+    dev = resolve_device(device)
+    return {
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, cfg.conv_channels),
+                            dtype=dtype, device=dev),
+        "ssm": torch.zeros((batch, cfg.heads, cfg.state, cfg.head_dim),
+                           dtype=torch.float32, device=dev),
+    }
+
+
+def ssm_decode(params: dict, cfg: SSMConfig, u: Tensor,
+               state: dict) -> tuple[Tensor, dict]:
+    """One-token step. u: [B, 1, D] -> ([B, 1, D], state), the state
+    advanced in place."""
+    b = u.shape[0]
+    dtype = u.dtype
+    zxbcdt = torch.einsum("bsd,dk->bsk", u, params["in_proj"].to(dtype))
+    z, xbc_new, dt = _split_proj(cfg, zxbcdt)              # [B,1,*]
+    # conv over (state window + new input)
+    window = torch.cat([state["conv"].to(dtype), xbc_new], dim=1)   # [B,K,C]
+    w = params["conv_w"].to(dtype)                          # [K, C]
+    conv_out = torch.einsum("bkc,kc->bc", window, w) + params["conv_b"].to(dtype)
+    xbc = F.silu(conv_out)                                  # [B, C]
+    x = xbc[:, : cfg.d_inner]
+    bmat = xbc[:, cfg.d_inner: cfg.d_inner + cfg.state].float()
+    cmat = xbc[:, cfg.d_inner + cfg.state:].float()
+    dt = F.softplus(dt[:, 0].float() + params["dt_bias"][None, :])  # [B, H]
+    a = -torch.exp(params["A_log"])                         # [H]
+    xh = x.reshape(b, cfg.heads, cfg.head_dim).float()
+    decay = torch.exp(a[None, :] * dt)                      # [B, H]
+    upd = torch.einsum("bn,bh,bhp->bhnp", bmat, dt, xh)
+    ssm = decay[:, :, None, None] * state["ssm"] + upd
+    y = torch.einsum("bn,bhnp->bhp", cmat, ssm)
+    y = y + params["D"][None, :, None] * xh
+    y = y.reshape(b, 1, cfg.d_inner).to(dtype)
+    y = rmsnorm(params["norm"], y * F.silu(z))
+    out = torch.einsum("bsk,kd->bsd", y, params["out_proj"].to(dtype))
+    state["conv"].copy_(window[:, 1:])
+    state["ssm"].copy_(ssm)
+    return out, state

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd as ssd_mod
@@ -43,6 +44,26 @@ SSD_CASES = [
     (1, 100, 2, 16, 32, 32),
     (2, 64, 4, 32, 64, 64),
     (1, 512, 4, 64, 128, 256),              # mamba2-130m's head and state
+]
+
+DECODE_CASES = [
+    # (b, s, n, kv, h, window, softcap): tests/test_kernels.py's list, then
+    # softcaps, windows that cut mid-tile and ragged caches
+    (2, 64, 4, 2, 16, None, None),
+    (3, 100, 8, 8, 32, None, None),
+    (1, 96, 8, 1, 64, 20, None),
+    (2, 256, 4, 4, 64, 128, None),
+    (3, 1000, 8, 4, 256, 100, 50.0),
+    (2, 777, 4, 1, 128, 37, None),
+    (3, 333, 16, 2, 64, None, 30.0),
+]
+
+# the full-width GQA shapes: (label, s, n, kv, h, window, softcap)
+DECODE_FULL = [
+    ("gemma2-2b local", 5120, 8, 4, 256, 4096, 50.0),
+    ("gemma2-2b global", 5120, 8, 4, 256, None, 50.0),
+    ("gemma-2b", 8192, 8, 1, 256, None, None),
+    ("qwen1.5-4b", 4096, 20, 20, 128, None, None),
 ]
 
 TOL = {torch.float32: dict(atol=3e-5, rtol=3e-5),
@@ -129,6 +150,122 @@ def test_ssd_kernel_dt0_padding_leaves_state_exactly(cuda):
     torch.cuda.synchronize()
     assert torch.equal(f1, f2)
     assert torch.equal(y1, y2[:, :s])
+
+
+def _decode_inputs(rng, b, s, n, kv, h, dtype, device):
+    amp = 4.0 if dtype == torch.bfloat16 else 1.0
+    q, k, v = (torch.from_numpy(a * rng.standard_normal(shape, np.float32))
+               .to(device, dtype) for a, shape in
+               ((amp, (b, n, h)), (amp, (b, s, kv, h)), (1.0, (b, s, kv, h))))
+    return q, k, v
+
+
+def _check_decode(q, k, v, pos, win, cap):
+    before = dec.launches
+    got = ops.decode_attention(q, k, v, pos, window=win, softcap=cap)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 1
+    want = ref.decode_attention(q.float(), k.float(), v.float(), pos,
+                                window=win, softcap=cap)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[q.dtype])
+    if q.dtype == torch.bfloat16:
+        rel = float((got.float() - want).norm() / want.norm())
+        assert rel <= BF16_REL_L2, rel
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain(cuda, case, dtype):
+    b, s, n, kv, h, win, cap = case
+    rng = np.random.default_rng(13)
+    q, k, v = _decode_inputs(rng, b, s, n, kv, h, dtype, cuda)
+    pos = torch.from_numpy(rng.integers(0, s, (b,)).astype(np.int32)).to(cuda)
+    _check_decode(q, k, v, pos, win, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DECODE_FULL, ids=[c[0] for c in DECODE_FULL])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_full_width(cuda, shape, dtype):
+    """At pos 0, one tile - 1, mid-cache and S - 1."""
+    _, s, n, kv, h, win, cap = shape
+    rng = np.random.default_rng(17)
+    q, k, v = _decode_inputs(rng, 1, s, n, kv, h, dtype, cuda)
+    for p in (0, dec.TILE - 1, s // 2 + 13, s - 1):
+        _check_decode(q, k, v, torch.tensor([p], dtype=torch.int32,
+                                            device=cuda), win, cap)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_ignores_stale_rows(cuda):
+    """Rows past pos hold 999 / -999: the output is bit for bit the same."""
+    rng = np.random.default_rng(19)
+    q, k, v = _decode_inputs(rng, 3, 700, 8, 4, 256, torch.bfloat16, cuda)
+    pos = torch.tensor([5, 300, 699], dtype=torch.int32, device=cuda)
+    clean = _check_decode(q, k, v, pos, 256, 50.0)
+    for i, p in enumerate(pos.tolist()):
+        k[i, p + 1:] = 999.0
+        v[i, p + 1:] = -999.0
+    stale = ops.decode_attention(q, k, v, pos, window=256, softcap=50.0)
+    torch.cuda.synchronize()
+    assert torch.equal(clean, stale)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_fp32_q_over_bf16_cache(cuda):
+    """An fp32 model over the default bf16 cache: the kernel reads each in
+    its own dtype and matches the plain version, which promotes."""
+    rng = np.random.default_rng(23)
+    q, _, _ = _decode_inputs(rng, 2, 300, 8, 4, 256, torch.float32, cuda)
+    _, k, v = _decode_inputs(rng, 2, 300, 8, 4, 256, torch.bfloat16, cuda)
+    pos = torch.tensor([17, 299], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, pos, window=100, softcap=50.0)
+    want = ref.decode_attention(q, k, v, pos, window=100, softcap=50.0)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[torch.float32])
+    with pytest.raises(ValueError, match="dtypes"):
+        dec.decode_attention(q.to(torch.bfloat16), k.float(), v.float(), pos)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses_a_cache_it_would_have_to_copy(cuda):
+    q = torch.zeros((1, 4, 64), device=cuda)
+    k = torch.zeros((1, 64, 4, 128), device=cuda)[..., :64]   # strided
+    pos = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    before = dec.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        dec.decode_attention(q, k, k, pos)
+    with pytest.raises(ValueError, match="group"):
+        dec.decode_attention(torch.zeros((1, 12, 64), device=cuda),
+                             k.contiguous(), k.contiguous(), pos)
+    assert dec.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen1.5-4b", "gemma2-2b",
+                                  "mamba2-130m"])
+def test_decode_step_launches_the_kernel_once_a_layer(cuda, arch):
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    lm = M.LM(cfg, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12), device=cuda,
+                           dtype=torch.int32)
+    cache = lm.init_cache(2, 16, torch.float32)
+    logits, cache = lm.prefill(tokens, cache)
+    dec.launches = 0
+    nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    dlogits, _ = lm.decode_step(nxt, cache, torch.full((2,), 12, device=cuda,
+                                                       dtype=torch.int32))
+    want, _ = lm(torch.cat([tokens, nxt], 1))
+    attn_layers = 0 if cfg.family == "ssm" else cfg.num_layers
+    assert dec.launches == attn_layers
+    np.testing.assert_allclose(_np(dlogits[:, 0]), _np(want[:, -1]),
+                               atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.cuda
