@@ -37,7 +37,24 @@ Phases, each of which raises (exit code != 0) on any failure:
    decode steps (every decode-attention call of the first and last step
    held against float32, the decoded logits against forward on the
    extended tokens, the launch counter against steps x layers), and
-   mamba2-130m whole, 1024 tokens and 32 steps; ms per decoded token.
+   mamba2-130m whole, 1024 tokens and 32 steps; ms per decoded token;
+8. MoE: the grouped-matmul kernel against its plain version (the
+   reference's cases, empty groups, one group of every row, groups ending
+   mid-tile, and phi3.5-moe's and qwen3-moe's full-width prefill and decode
+   shapes), its bfloat16 gate shown rejecting a row moved to the next expert
+   and a dropped partial row tile, timed with a cold L2 beside
+   ``torch._grouped_mm`` and the bound; the decode kernel at qwen3-moe's
+   group of 16 with phase 7's gates; both MoE architectures at smoke width
+   under both moe_impl values, card against CPU; phi3.5-moe at its published
+   width cut to 4 layers (1024-token prefill, 32 greedy steps) and qwen3-moe
+   cut to 2 (1024 + 8), every grouped-matmul call of the prefill and of the
+   first and last step held against float32, the routing flips between bf16
+   and float32 counted, the logits held on the tokens routed alike, the
+   launch counters against (prefill + steps) x layers x 3.
+
+The ``kernels`` line's launches add up each kernel's counted runs: flash
+over the serving run and the MoE prefills, SSD over the serving run,
+decode attention over the decode and MoE steps, gmm over the MoE runs.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -86,6 +103,20 @@ def gpu_name_and_power() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(text: str, keys) -> None:
+    """Registers and spills of the kernel instances whose mangled names
+    hold one of ``keys``, from nvcc's ``-Xptxas -v`` report."""
+    entry, seen = None, {}
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and any(k in entry for k in keys) and (
+                "registers" in line or "spill" in line):
+            seen.setdefault(entry, []).append(line.split(":")[-1].strip())
+    for entry, lines in seen.items():
+        log(f"[build] {entry}: {'; '.join(lines)}")
 
 
 def time_ms(fn, warmup: int = 2, reps: int = 5, flush=None) -> float:
@@ -603,7 +634,17 @@ def profile_fn(torch, label: str, fn) -> None:
 # ---------------------------------------------------------------------------
 
 
-def check_decode_kernel(torch, gen):
+DECODE_KERNEL_CASES = [
+    # label, S, N, K, H, window, softcap, pos (one per sequence)
+    ("gemma2-2b local", 5120, 8, 4, 256, 4096, 50.0, [4640]),
+    ("gemma2-2b global", 5120, 8, 4, 256, None, 50.0, [4640]),
+    ("gemma-2b", 8192, 8, 1, 256, None, None, [7000]),
+    ("qwen1.5-4b", 4096, 20, 20, 128, None, None, [3500]),
+    ("gemma2-2b local B=3", 5120, 8, 4, 256, 4096, 50.0, [70, 4100, 5119]),
+]
+
+
+def check_decode_kernel(torch, gen, cases=DECODE_KERNEL_CASES):
     """The decode kernel against its plain version at the full-width GQA
     shapes, with times, bounds and SDPA beside it. The bf16 gate must reject
     the kernel run with the softcap dropped, with the window dropped, and
@@ -611,15 +652,6 @@ def check_decode_kernel(torch, gen):
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import ops, ref
     import torch.nn.functional as F
-
-    cases = [
-        # label, S, N, K, H, window, softcap, pos (one per sequence)
-        ("gemma2-2b local", 5120, 8, 4, 256, 4096, 50.0, [4640]),
-        ("gemma2-2b global", 5120, 8, 4, 256, None, 50.0, [4640]),
-        ("gemma-2b", 8192, 8, 1, 256, None, None, [7000]),
-        ("qwen1.5-4b", 4096, 20, 20, 128, None, None, [3500]),
-        ("gemma2-2b local B=3", 5120, 8, 4, 256, 4096, 50.0, [70, 4100, 5119]),
-    ]
     # in a model step each layer's cache is read once, so every timed run
     # starts with a cold L2: 64 MB written in between (the L2 holds 50 MB)
     scrub = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
@@ -906,6 +938,409 @@ def decode(torch, gen):
     return headline, g2["launches"] + mb["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 8: MoE
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b")
+# the reference's grouped-matmul cases (tests/test_kernels.py): (T, D, F, E)
+GMM_REF_CASES = [(16, 8, 16, 2), (37, 16, 24, 4), (100, 32, 64, 8),
+                 (64, 16, 48, 16)]
+
+
+def routed_sizes(torch, gen, tokens: int, e: int, k: int) -> list[int]:
+    """Rows per expert when each of ``tokens`` tokens picks k distinct
+    experts at random, as a router does."""
+    picks = torch.rand((tokens, e), generator=gen, device="cuda").topk(k).indices
+    return torch.bincount(picks.flatten(), minlength=e).tolist()
+
+
+def gmm_library(torch, x, w, sizes):
+    """The library yardstick for one grouped matmul, and its name:
+    ``torch._grouped_mm`` on the same sorted rows and offsets where this
+    PyTorch has it and takes the case, else a per-expert ``torch.matmul``
+    loop with the sizes on the host before the clock starts."""
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    if x.dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+        try:
+            torch._grouped_mm(x, w, offs=offs)
+            torch.cuda.synchronize()
+            return (lambda: torch._grouped_mm(x, w, offs=offs)), "torch._grouped_mm"
+        except (RuntimeError, TypeError, ValueError) as e:
+            log(f"[moe] torch._grouped_mm does not take {tuple(x.shape)} x "
+                f"{tuple(w.shape)}: {str(e)[:120]}")
+    bounds, start = [], 0
+    for n in sizes.tolist():
+        bounds.append((start, start + n))
+        start += n
+
+    def loop():
+        for ei, (a, b) in enumerate(bounds):
+            if b > a:
+                torch.matmul(x[a:b], w[ei])
+    return loop, "per-expert torch.matmul loop"
+
+
+def check_gmm_kernel(torch, gen):
+    """The grouped-matmul kernel against its plain version: the reference's
+    cases, empty groups, one group of every row, groups that end mid-tile,
+    and the full-width shapes of phi3.5-moe (wi and wo at 2048 and 2 rows)
+    and qwen3-moe (wi and wo at 8192 and 8 rows, most of 128 experts empty
+    at decode). float32 within 3e-5 (the reference's tolerance); bf16
+    against the plain version in float32 on the same inputs within
+    BF16_REL_L2 (one rounding, of the output). The bf16 gate must reject the
+    kernel run with one row moved to the next expert and with the last
+    partial row tile dropped. Times: cold L2, host launch path off the
+    clock, beside the bound and the library call."""
+    from repro_torch.kernels import gmm as gmm_mod
+    from repro_torch.kernels import ops, ref
+
+    both, bf16 = ("float32", "bfloat16"), ("bfloat16",)
+    cases = [(f"reference {c}", *c, None, both, False) for c in GMM_REF_CASES]
+    cases += [
+        # label, T, D, F, E, sizes (None: routed), dtypes, timed
+        ("empty groups", 8, 8, 8, 4, [5, 0, 0, 3], both, False),
+        ("one group of all rows", 300, 136, 200, 5, [0, 0, 300, 0, 0], both,
+         False),
+        ("groups ending mid-tile", 321, 72, 80, 4, [65, 1, 127, 128], both,
+         False),
+        ("phi3.5-moe wi prefill", 2048, 4096, 6400, 16, (1024, 2), bf16, True),
+        ("phi3.5-moe wo prefill", 2048, 6400, 4096, 16, (1024, 2), bf16, True),
+        ("phi3.5-moe wi decode", 2, 4096, 6400, 16, (1, 2), both, True),
+        ("phi3.5-moe wo decode", 2, 6400, 4096, 16, (1, 2), both, False),
+        ("qwen3-moe wi prefill", 8192, 4096, 1536, 128, (1024, 8), bf16, True),
+        ("qwen3-moe wo prefill", 8192, 1536, 4096, 128, (1024, 8), bf16,
+         False),
+        ("qwen3-moe wi decode", 8, 4096, 1536, 128, (1, 8), both, True),
+        ("qwen3-moe wo decode", 8, 1536, 4096, 128, (1, 8), both, False),
+    ]
+    scrub = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
+    flush = scrub.zero_
+    headline = None
+    for label, t, d, f, e, sizes_spec, dnames, timed in cases:
+        if sizes_spec is None:
+            sizes_l = torch.bincount(torch.randint(
+                0, e, (t,), generator=gen, device="cuda"), minlength=e).tolist()
+        elif isinstance(sizes_spec, tuple):
+            sizes_l = routed_sizes(torch, gen, sizes_spec[0], e, sizes_spec[1])
+        else:
+            sizes_l = sizes_spec
+        assert sum(sizes_l) == t, (label, sizes_l)
+        sizes = torch.tensor(sizes_l, dtype=torch.int32, device="cuda")
+        for dname in dnames:
+            dtype = getattr(torch, dname)
+            x = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((e, d, f), generator=gen, device="cuda")
+                 * d ** -0.5).to(dtype)
+            run = lambda xx=x, ss=sizes: ops.gmm(xx, w, ss)
+            got = run()
+            torch.cuda.synchronize()
+            name = f"gmm {label} {dname}"
+            rel = None
+            if dname == "float32":
+                err = compare(name, got, ref.gmm(x, w, sizes), TOL[dname])
+            else:
+                want = ref.gmm(x.float(), w.float(), sizes)
+                err, rel = check_bf16(name, got, want)
+                faults = []
+                live = [i for i, n in enumerate(sizes_l) if n]
+                src = next((i for i in live if i + 1 < e), None)
+                if src is not None:
+                    moved = list(sizes_l)
+                    moved[src] -= 1
+                    moved[src + 1] += 1
+                    faults.append((f"one row of expert {src} moved to {src + 1}",
+                                   run(ss=torch.tensor(moved, dtype=torch.int32,
+                                                       device="cuda"))))
+                # the last live expert's rows end the array: drop its last
+                # partial 64-row tile (a whole tile when none is partial)
+                last = live[-1]
+                r = sizes_l[last] % 64 or min(64, sizes_l[last])
+                cut = list(sizes_l)
+                cut[last] -= r
+                part = run(xx=x[:t - r], ss=torch.tensor(cut, dtype=torch.int32,
+                                                        device="cuda"))
+                faults.append((f"the last {r} rows (a partial tile) dropped",
+                               torch.cat([part, part.new_zeros((r, f))])))
+                for what, bad in faults:
+                    rb = rel_l2(bad, want)
+                    log(f"[moe] gmm {label} bf16 with {what}: relative L2 err "
+                        f"{rb} (gate {BF16_REL_L2})")
+                    if rb <= BF16_REL_L2:
+                        raise AssertionError(f"{name}: the gate does not "
+                                             f"reject the kernel with {what}")
+                del want, faults
+            del got
+            ms = plain_ms = lib_ms = lib_name = None
+            flops = gmm_mod.flops(t, d, f)
+            nbytes = gmm_mod.hbm_bytes(sizes_l, d, f, x.element_size())
+            bound_ms, bound_by = bound(flops, nbytes)
+            if timed:
+                ms = time_ms(run, reps=20, flush=flush)
+                plain_ms = time_ms(lambda: ref.gmm(x, w, sizes), reps=5,
+                                   flush=flush)
+                lib_fn, lib_name = gmm_library(torch, x, w, sizes)
+                lib_ms = time_ms(lib_fn, reps=20, flush=flush)
+            live_e = sum(1 for n in sizes_l if n)
+            log(f"[moe] gmm {label} {dname} T={t} D={d} F={f} E={e} "
+                f"({live_e} with rows): max_abs_err={err} rel_l2_err={rel} "
+                f"ms={ms} plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}, "
+                f"{nbytes} bytes, {flops} flops) library_ms={lib_ms} "
+                f"({lib_name})")
+            if label == "phi3.5-moe wi prefill":
+                headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=lib_ms)
+            del x, w
+            torch.cuda.empty_cache()
+    del scrub
+    return headline
+
+
+def check_moe_models(torch) -> None:
+    """The two MoE architectures at smoke width in float32, under both
+    moe_impl values: forward (logits and aux) and prefill plus four decode
+    steps (logits of every step, every cache leaf) on the card against the
+    CPU. The tokens fed to both are the CPU's greedy choices."""
+    import numpy as np
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as M
+
+    tokens = torch.from_numpy(
+        np.random.default_rng(2).integers(0, 256, (2, 40)).astype(np.int32))
+    for arch in MOE_ARCHS:
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        p_cpu = M.init_params(torch.Generator(device="cpu").manual_seed(0),
+                              cfg, "cpu")
+        p_gpu = M.tree_map(lambda t: t.to("cuda"), p_cpu)
+        for impl in ("kernel", "einsum"):
+            runs, feed = {}, []
+            for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+                with torch.inference_mode():
+                    flog, aux = M.forward(p, cfg, tokens.to(dev), moe_impl=impl)
+                    cache = M.init_cache(cfg, 2, 48, torch.float32, dev)
+                    logits, cache = M.prefill(p, cfg, tokens.to(dev), cache,
+                                              moe_impl=impl)
+                    outs = [flog, logits[:, -1]]
+                    for i in range(4):
+                        if dev == "cpu":
+                            feed.append(outs[-1].argmax(-1).to(torch.int32)[:, None])
+                        pos = torch.tensor([40 + i, 37 + i], dtype=torch.int32,
+                                           device=dev)
+                        logits, cache = M.decode_step(p, cfg, feed[i].to(dev),
+                                                      cache, pos, moe_impl=impl)
+                        outs.append(logits[:, 0])
+                leaves = []
+                M.tree_map(leaves.append, cache)
+                runs[dev] = (outs, float(aux), leaves)
+            err = 0.0
+            for i, (got, want) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+                err = max(err, compare(f"moe {arch} {impl} output {i} (card vs "
+                                       f"CPU)", got.cpu(), want, 1e-4))
+            for i, (got, want) in enumerate(zip(runs["cuda"][2], runs["cpu"][2])):
+                err = max(err, compare(f"moe {arch} {impl} cache leaf {i} "
+                                       f"(card vs CPU)", got.cpu(), want, 1e-4))
+            aux_c, aux_g = runs["cpu"][1], runs["cuda"][1]
+            if not abs(aux_g - aux_c) <= 1e-5 * (1 + abs(aux_c)):
+                raise AssertionError(f"moe {arch} {impl}: aux {aux_g} on the "
+                                     f"card, {aux_c} on the CPU")
+            log(f"[moe] {arch} smoke fp32 moe_impl={impl}: forward, prefill "
+                f"S=40 + 4 steps, card vs CPU: max_abs_err={err}; aux card "
+                f"{aux_g} CPU {aux_c}")
+
+
+def _route_sets_agree(a, b):
+    """Per token, whether two routings [T, k] chose the same experts, and
+    how many (token, choice) pairs of ``a`` chose an expert ``b`` did not."""
+    same = (a[:, :, None] == b[:, None, :]).any(-1)        # [T, k]
+    return same.all(-1), int((~same).sum())
+
+
+def moe_full_width(torch, arch: str, layers: int, prompt: int, steps: int,
+                   max_seq: int, seed: int) -> dict:
+    """One MoE architecture at its published width, cut to ``layers``
+    layers, in bf16 through moe_impl="kernel": ``prefill`` of a prompt, then
+    greedy ``decode_step``s.
+
+    Every grouped-matmul call of the prefill and of the first and last step
+    is held, on its own inputs, against the plain version in float32 (gate
+    BF16_REL_L2). The routing of every layer is recorded, on this path and
+    in two forwards on the extended tokens with the plain versions (float32,
+    and bf16, both on the same bf16-valued weights): a router's decision can
+    flip at a near tie between bf16 and float32, which is no kernel fault, so
+    the flipped (token, choice) pairs are counted and the logits (prefill
+    and decoded) are held, on the tokens routed alike at every layer, to no
+    more than twice the plain bf16 forward's distance from float32. The
+    launch counters are read over the tapped prefill and the steps.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_compute_dtype
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gmm_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = to_compute_dtype(M.init_params(gen, cfg, "cuda"), torch.bfloat16)
+    torch.cuda.empty_cache()                 # the float32 draw is gone
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    d, f = cfg.d_model, cfg.d_ff
+    real_gmm, real_route = ops.gmm, moe.route
+    calls, routes = [], []
+
+    def tapped_gmm(x, w, sizes, **kw):
+        out = real_gmm(x, w, sizes, **kw)
+        want = ref.gmm(x.float(), w.float(), sizes)
+        calls.append(((tuple(x.shape), tuple(w.shape), x.dtype),
+                      rel_l2(out, want)))
+        return out
+
+    def tapped_route(p, mcfg, x):
+        out = real_route(p, mcfg, x)
+        routes.append(out[1])
+        return out
+
+    def expect(rows):
+        return [((rows * k, d), (e, d, f), torch.bfloat16)] * 2 + \
+            [((rows * k, f), (e, f, d), torch.bfloat16)]
+
+    def check_calls(what, rows):
+        want = expect(rows) * layers
+        seen = [c[0] for c in calls]
+        if seen != want:
+            raise AssertionError(f"{arch} {what}: gmm calls {seen}, expected "
+                                 f"{want}")
+        worst = max(c[1] for c in calls)
+        log(f"[moe] {arch} {what}: {len(calls)} gmm calls with the config's "
+            f"shapes; the worst relative L2 err against the float32 plain "
+            f"version on the same inputs {worst} (gate {BF16_REL_L2})")
+        if worst > BF16_REL_L2:
+            raise AssertionError(f"{arch} {what}: a gmm call off by {worst}")
+
+    with torch.inference_mode():
+        cache = M.init_cache(cfg, 1, max_seq, torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M.prefill(params, cfg, tokens, cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        # the counted run: the tapped prefill (it writes the same cache
+        # again) and the steps
+        fa.launches = dec.launches = gmm_mod.launches = 0
+        ops.gmm, moe.route = tapped_gmm, tapped_route
+        try:
+            plog, cache = M.prefill(params, cfg, tokens, cache)
+        finally:
+            ops.gmm, moe.route = real_gmm, real_route
+        check_calls(f"prefill of {prompt}", prompt)
+        kern_routes = [[r] for r in routes]
+        outs = [plog[0].clone()]
+        nxt = plog[:, -1].argmax(-1).to(torch.int32)[:, None]
+        del plog
+        fed, step_ms = [], []
+        for i in range(steps):
+            tap = i in (0, steps - 1)
+            pos = torch.full((1,), prompt + i, dtype=torch.int32, device="cuda")
+            calls.clear()
+            routes.clear()
+            ops.gmm = tapped_gmm if tap else real_gmm
+            moe.route = tapped_route
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                logits, cache = M.decode_step(params, cfg, nxt, cache, pos)
+            finally:
+                ops.gmm, moe.route = real_gmm, real_route
+            torch.cuda.synchronize()
+            if not tap:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            else:
+                check_calls(f"step {i} (pos {prompt + i})", 1)
+            for li, r in enumerate(routes):
+                kern_routes[li].append(r)
+            fed.append(nxt)
+            outs.append(logits[0])
+            nxt = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
+        launches = {"flash_attention": fa.launches,
+                    "decode_attention": dec.launches, "gmm": gmm_mod.launches}
+        want_l = {"flash_attention": layers, "decode_attention": steps * layers,
+                  "gmm": (1 + steps) * layers * 3}
+        if launches != want_l:
+            raise AssertionError(f"{arch}: launches {launches}, expected "
+                                 f"{want_l} ((prefill + {steps} steps) x "
+                                 f"{layers} layers x 3 for gmm)")
+        got = torch.cat(outs)                               # [prompt+steps, V]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{arch}: non-finite logits")
+        kern_routes = [torch.cat(r) for r in kern_routes]
+        ext = torch.cat([tokens] + fed, dim=1)
+
+        def plain_forward(p, c):
+            routes.clear()
+            ops.gmm, moe.route = ref.gmm, tapped_route
+            try:
+                out = M.forward(p, c, ext, "torch", "torch")[0][0].clone()
+            finally:
+                ops.gmm, moe.route = real_gmm, real_route
+            return out, list(routes)
+        plain, plain_routes = plain_forward(params, cfg)
+        p32 = M.tree_map(lambda t: t.float(), params)
+        want, want_routes = plain_forward(
+            p32, dataclasses.replace(cfg, dtype="float32"))
+        del p32
+    agree = torch.ones(ext.shape[1], dtype=torch.bool, device="cuda")
+    flips = {"kernel": 0, "plain": 0}
+    for li in range(layers):
+        for name, rt in (("kernel", kern_routes), ("plain", plain_routes)):
+            same, n = _route_sets_agree(rt[li], want_routes[li])
+            agree &= same
+            flips[name] += n
+    n_ok = int(agree.sum())
+    kern = rel_l2(got[agree], want[agree])
+    plain_d = rel_l2(plain[agree], want[agree])
+    gate = 2 * plain_d
+    log(f"[moe] {arch} {layers} layers bf16, prompt {prompt} + {steps} steps: "
+        f"(token, choice) pairs routed to another expert than in the float32 "
+        f"forward, over {layers} layers x {ext.shape[1]} tokens x {k}: "
+        f"kernel path {flips['kernel']}, plain bf16 forward {flips['plain']}; "
+        f"{n_ok} of {ext.shape[1]} tokens routed alike at every layer. On "
+        f"those, relative L2 err of the logits (prefill and decoded) against "
+        f"the float32 forward: kernel path {kern}, plain bf16 forward "
+        f"{plain_d} (gate {gate}); over all tokens {rel_l2(got, want)} and "
+        f"{rel_l2(plain, want)}")
+    if n_ok < 64:
+        raise AssertionError(f"{arch}: only {n_ok} tokens routed alike")
+    if not kern <= gate:
+        raise AssertionError(f"{arch}: logits off by {kern}, above {gate}")
+    med = statistics.median(step_ms)
+    log(f"[moe] {arch} bf16: prefill of {prompt} tokens {prefill_ms} ms; "
+        f"median {med} ms per decoded token over {len(step_ms)} untapped "
+        f"steps (min {min(step_ms)}, max {max(step_ms)}); launches {launches}")
+    step = lambda: M.decode_step(params, cfg, nxt, cache, pos)
+    profile_fn(torch, f"{arch} decode_step at pos {prompt + steps - 1}", step)
+    del params, cache, got, want, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_phase(torch, gen):
+    headline = check_gmm_kernel(torch, gen)
+    check_decode_kernel(torch, gen, [
+        ("qwen3-moe (group 16)", 1056, 64, 4, 128, None, None, [1040])])
+    check_moe_models(torch)
+    # depth cut to fit the card: phi3.5-moe's 32 layers are ~83 GB in bf16
+    phi = moe_full_width(torch, MOE_ARCHS[0], layers=4, prompt=1024,
+                         steps=32, max_seq=1056, seed=7)
+    qwen = moe_full_width(torch, MOE_ARCHS[1], layers=2, prompt=1024,
+                          steps=8, max_seq=1056, seed=8)
+    return headline, {n: phi[n] + qwen[n] for n in phi}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -919,6 +1354,7 @@ def main() -> int:
         return 1
 
     # 1. environment
+    t_start = time.perf_counter()
     cap = torch.cuda.get_device_capability(0)
     if cap != (9, 0):
         raise AssertionError(f"needs an sm_90 card, found capability {cap}")
@@ -936,6 +1372,7 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
+    ptxas_report(build.build_log(), ("gmm_", "Li128ELi16E"))
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -951,6 +1388,16 @@ def main() -> int:
     # 7. decode
     dec_headline, launches["decode_attention"] = decode(torch, gen)
 
+    # 8. MoE
+    t_moe = time.perf_counter()
+    gmm_headline, moe_launches = moe_phase(torch, gen)
+    log(f"[time] phases 1-7 {t_moe - t_start:.1f} s, phase 8 (MoE) "
+        f"{time.perf_counter() - t_moe:.1f} s")
+    log(f"[moe] launches on the MoE path: {moe_launches}; before it: "
+        f"{launches}")
+    for name, n in moe_launches.items():
+        launches[name] = launches.get(name, 0) + n
+
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -964,6 +1411,10 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:128",
              launches=launches["decode_attention"], **dec_headline),
+        dict(name="gmm", route="cuda",
+             source="src/repro_torch/kernels/csrc/gmm.cu",
+             replaces="src/repro/kernels/gmm.py:70",
+             launches=launches["gmm"], **gmm_headline),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

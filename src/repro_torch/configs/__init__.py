@@ -83,17 +83,18 @@ class ArchConfig:
         return self.d_model // self.num_heads if self.num_heads else 0
 
 
-#: arch-id -> module name (the architectures of the serving slice)
+#: arch-id -> module name (the architectures of the serving and MoE slices)
 _REGISTRY = {
     "gemma2-2b": "gemma2_2b",
     "qwen1.5-4b": "qwen1_5_4b",
     "gemma-2b": "gemma_2b",
     "mamba2-130m": "mamba2_130m",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
+    "qwen3-moe-235b-a22b": "qwen3_moe",
 }
 
 #: architectures the JAX package has and the port does not have yet
-_LATER = ("musicgen-large", "minitron-8b", "phi3.5-moe-42b-a6.6b",
-          "qwen3-moe-235b-a22b", "zamba2-2.7b", "phi-3-vision-4.2b")
+_LATER = ("musicgen-large", "minitron-8b", "zamba2-2.7b", "phi-3-vision-4.2b")
 
 ARCH_IDS = tuple(_REGISTRY)
 
@@ -101,7 +102,7 @@ ARCH_IDS = tuple(_REGISTRY)
 def get_config(arch: str) -> ArchConfig:
     if arch in _LATER:
         raise KeyError(f"arch {arch!r} is not ported yet: it comes with the "
-                       f"MoE / remaining-architectures slice; ported: "
+                       f"remaining-architectures slice; ported: "
                        f"{sorted(_REGISTRY)}")
     if arch not in _REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")

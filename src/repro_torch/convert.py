@@ -20,11 +20,13 @@ from . import resolve_device
 from .models.model import tree_map
 
 #: leaves that every apply function casts to the compute dtype before use
-#: (weights and biases of the products, the embedding table, the conv);
-#: norm scales and the SSM's A_log, D and dt_bias stay float32
+#: (weights and biases of the products, the MoE router, the embedding
+#: table, the conv); norm scales and the SSM's A_log, D and dt_bias stay
+#: float32
 COMPUTE_LEAVES = frozenset({
     "wq", "wk", "wv", "wo", "bq", "bk", "bv",          # attention
-    "wi", "wg",                                        # mlp ("wo" above)
+    "wi", "wg",                                        # mlp and experts ("wo" above)
+    "router",                                          # moe
     "table", "unembed",                                # embedding
     "in_proj", "out_proj", "conv_w", "conv_b",         # mamba2
 })

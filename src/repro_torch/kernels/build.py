@@ -131,6 +131,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         f, i, f,                    # scale, window (<=0: none), softcap (<=0: none)
         p]                          # cudaStream_t
     lib.repro_decode_attention_fwd.restype = i
+    lib.repro_gmm_fwd.argtypes = [
+        p, p, p, p,                 # x, w, group sizes (int32), out
+        i,                          # dtype: 0 float32, 1 bfloat16
+        i, i, i, i,                 # T, D, F, E
+        p]                          # cudaStream_t
+    lib.repro_gmm_fwd.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

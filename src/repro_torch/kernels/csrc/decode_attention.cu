@@ -21,7 +21,8 @@
 // is read from pos on the device) is cut into runs of whole tiles, one run
 // per block, so a block never touches a row past pos or before lo. Unfilled
 // and stale rows are never read. Inside a block each warp takes keys in turn;
-// a key's row is spread over LPK lanes with 16-byte loads, U keys per lane
+// a key's row is spread over LPK lanes with 16-byte loads (8-byte at a
+// group of 16, see ChunkOf), U keys per lane
 // group are loaded before any is used (loads in flight), the G scores are
 // reduced across the LPK lanes with shuffles, and the lane keeps running
 // (m, l, acc) for its share of the columns. The key slots of a warp, then the
@@ -60,22 +61,42 @@ struct Args {
   cudaStream_t stream;
 };
 
-// Eight (bf16) or four (float) values of a 16-byte chunk, as floats.
-template <typename T> __device__ __forceinline__ void unpack16(const uint4& u, float* f);
-template <> __device__ __forceinline__ void unpack16<float>(const uint4& u, float* f) {
+// The values of a 16-byte chunk (eight bf16 or four float) or of an 8-byte
+// chunk (four bf16 or two float), as floats.
+template <typename T> __device__ __forceinline__ void unpack(const uint4& u, float* f);
+template <typename T> __device__ __forceinline__ void unpack(const uint2& u, float* f);
+__device__ __forceinline__ void unpack_bf16_pair(uint32_t w, float* f) {
+  f[0] = __uint_as_float(w << 16);  // the low half holds the lower index
+  f[1] = __uint_as_float(w & 0xffff0000u);
+}
+template <> __device__ __forceinline__ void unpack<float>(const uint4& u, float* f) {
   f[0] = __uint_as_float(u.x);
   f[1] = __uint_as_float(u.y);
   f[2] = __uint_as_float(u.z);
   f[3] = __uint_as_float(u.w);
 }
-template <> __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& u, float* f) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // the low half holds the lower index
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
+template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u, float* f) {
+  unpack_bf16_pair(u.x, f);
+  unpack_bf16_pair(u.y, f + 2);
+  unpack_bf16_pair(u.z, f + 4);
+  unpack_bf16_pair(u.w, f + 6);
 }
+template <> __device__ __forceinline__ void unpack<float>(const uint2& u, float* f) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+}
+template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint2& u, float* f) {
+  unpack_bf16_pair(u.x, f);
+  unpack_bf16_pair(u.y, f + 2);
+}
+
+// A group of 16 query heads keeps 16 scores, maxima, sums and accumulator
+// rows a lane: with 16-byte chunks (8 bf16 columns a lane at head_dim 128)
+// that is over 300 registers and spills. So G = 16 reads 8-byte chunks,
+// which spreads a row over twice the lanes and halves each lane's columns,
+// and keeps 2 keys in flight a lane group instead of 4.
+template <int G> struct ChunkOf { using type = uint4; };
+template <> struct ChunkOf<16> { using type = uint2; };
 
 // weight of a partial with max m in a merge whose max is m_new
 __device__ __forceinline__ float rescale(float m, float m_new) {
@@ -84,14 +105,15 @@ __device__ __forceinline__ float rescale(float m, float m_new) {
 
 template <typename TQ, typename TKV, int H, int G>
 __global__ void __launch_bounds__(NT) decode_split_kernel(Args a) {
-  constexpr int VEC = 16 / sizeof(TKV);                // elements per 16 bytes
+  using Chunk = typename ChunkOf<G>::type;
+  constexpr int VEC = sizeof(Chunk) / sizeof(TKV);     // elements per chunk
   constexpr int LPK = H / VEC < 32 ? H / VEC : 32;     // lanes per key row
   constexpr int EPL = H / LPK;                         // elements per lane
-  constexpr int CH = EPL / VEC;                        // 16-byte chunks per lane
+  constexpr int CH = EPL / VEC;                        // chunks per lane
   constexpr int KPW = 32 / LPK;                        // keys a warp takes at once
-  constexpr int U = sizeof(TKV) == 2 ? 4 : 2;          // keys in flight per lane group
+  constexpr int U = G >= 16 ? 2 : sizeof(TKV) == 2 ? 4 : 2;  // keys in flight per lane group
   constexpr int STEP = NW * KPW;                       // keys the block takes at once
-  static_assert(H % VEC == 0 && EPL % VEC == 0, "head_dim must fill 16-byte chunks");
+  static_assert(H % VEC == 0 && EPL % VEC == 0, "head_dim must fill whole chunks");
   __shared__ float sm_acc[NW][G][H];
   __shared__ float sm_m[NW][G];
   __shared__ float sm_l[NW][G];
@@ -136,16 +158,16 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(Args a) {
   // below see the whole warp
   for (int wbase = s0 + warp * KPW; wbase < s1; wbase += STEP * U) {
     const int base = wbase + slot;
-    uint4 kr[U][CH], vr[U][CH];
+    Chunk kr[U][CH], vr[U][CH];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int key = base + u * STEP;
-      const uint4* kp = reinterpret_cast<const uint4*>(kb + key * row);
-      const uint4* vp = reinterpret_cast<const uint4*>(vb + key * row);
+      const Chunk* kp = reinterpret_cast<const Chunk*>(kb + key * row);
+      const Chunk* vp = reinterpret_cast<const Chunk*>(vb + key * row);
 #pragma unroll
       for (int i = 0; i < CH; ++i) {
-        kr[u][i] = key < s1 ? kp[i] : make_uint4(0u, 0u, 0u, 0u);
-        vr[u][i] = key < s1 ? vp[i] : make_uint4(0u, 0u, 0u, 0u);
+        kr[u][i] = key < s1 ? kp[i] : Chunk{};
+        vr[u][i] = key < s1 ? vp[i] : Chunk{};
       }
     }
     float x[U][G];
@@ -153,7 +175,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(Args a) {
     for (int u = 0; u < U; ++u) {
       float kf[EPL];
 #pragma unroll
-      for (int i = 0; i < CH; ++i) unpack16<TKV>(kr[u][i], kf + i * VEC);
+      for (int i = 0; i < CH; ++i) unpack<TKV>(kr[u][i], kf + i * VEC);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float s = 0.f;
@@ -184,7 +206,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(Args a) {
       if (base + u * STEP >= s1) continue;
       float vf[EPL];
 #pragma unroll
-      for (int i = 0; i < CH; ++i) unpack16<TKV>(vr[u][i], vf + i * VEC);
+      for (int i = 0; i < CH; ++i) unpack<TKV>(vr[u][i], vf + i * VEC);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float pr = expf(x[u][g] - m[g]);
@@ -323,6 +345,9 @@ cudaError_t by_group(int G, const Args& a) {
     case 2: return launch<TQ, TKV, H, 2>(a);
     case 4: return launch<TQ, TKV, H, 4>(a);
     case 8: return launch<TQ, TKV, H, 8>(a);
+    case 16:  // up to head_dim 128: 256 would hold 64 KB of static shared memory
+      if constexpr (H <= 128) return launch<TQ, TKV, H, 16>(a);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

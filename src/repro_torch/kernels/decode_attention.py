@@ -21,7 +21,10 @@ from . import build
 #: the JAX package's key tile: the padding of the plain version in ``ops``
 DEFAULT_BLOCK_K = 256
 HEAD_DIMS = (16, 32, 64, 128, 256)
-GROUPS = (1, 2, 4, 8)
+GROUPS = (1, 2, 4, 8, 16)
+#: a group of 16 is built up to this head_dim (256 would need 64 KB of
+#: static shared memory a block)
+MAX_HEAD_DIM_G16 = 128
 #: keys per tile: the live range of a sequence is cut into runs of whole
 #: tiles, one run per block
 TILE = 64
@@ -83,6 +86,9 @@ def decode_attention(
                          f"must be one of {GROUPS}")
     if h not in HEAD_DIMS:
         raise ValueError(f"head_dim {h} not in {HEAD_DIMS}")
+    if n // kv == 16 and h > MAX_HEAD_DIM_G16:
+        raise ValueError(f"a group of 16 query heads takes head_dim up to "
+                         f"{MAX_HEAD_DIM_G16}, got {h}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:

@@ -6,7 +6,8 @@ padding to tile boundaries, on CUDA it launches the hand-written kernel,
 which raises on anything it does not take. The flash kernel masks ragged
 sequence ends itself, so only the SSD scan is padded (to its chunk) on
 CUDA, and the decode kernel reads only the live rows of the cache, so it is
-never padded. A CUDA tensor never falls back to the plain version.
+never padded. Neither version of the grouped matmul is padded. A CUDA
+tensor never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 from . import decode_attention as _dec
 from . import flash_attention as _fa
+from . import gmm as _gmm
 from . import ref
 from . import ssd as _ssd
 
@@ -115,3 +117,19 @@ def ssd(
     else:
         y, fin = ref.ssd_chunked(x, dt, A, B, C, D, chunk=ch)
     return y[:, :s], fin
+
+
+def gmm(x_sorted: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+        *, block_t: int = 128, block_f: int = 512) -> torch.Tensor:
+    """Ragged grouped matmul [T, D] x [E, D, F] -> [T, F]: rows sorted by
+    group, ``group_sizes`` [E] rows each (summing to T).
+
+    ``block_t`` and ``block_f`` are the JAX package's tile sizes and set
+    nothing here: the CUDA kernel keeps its own tiles, and the plain version
+    needs no padding, since a padding row only adds an output row that the
+    JAX package drops again and changes no real row.
+    """
+    del block_t, block_f
+    if _on_cuda(x_sorted, w, group_sizes):
+        return _gmm.gmm(x_sorted, w, group_sizes)
+    return ref.gmm(x_sorted, w, group_sizes)

@@ -178,3 +178,32 @@ def ssd_chunked(
                            states_in)
     y = y_intra + y_inter + D.float()[None, None, None, :, None] * x32
     return y.reshape(b, s, h, p).to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# grouped matmul (MoE expert GEMM)
+# ---------------------------------------------------------------------------
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor,
+        group_sizes: torch.Tensor) -> torch.Tensor:
+    """x: [T, D] rows sorted by group; w: [E, D, F]; group_sizes: [E] int,
+    summing to T. Returns [T, F] with out[t] = x[t] @ w[g(t)], where group
+    g holds the ``group_sizes[g]`` rows after those of groups < g: one
+    product per expert, in fp32, rounded to x's dtype.
+
+    The JAX package's oracle gathers ``w[g(t)]`` for every row, which at a
+    served model's width is hundreds of GB; this loops over the experts
+    instead. It reads the sizes on the host."""
+    sizes = [int(n) for n in group_sizes.tolist()]
+    t = x.shape[0]
+    if sum(sizes) != t or min(sizes, default=0) < 0:
+        raise ValueError(f"group sizes {sizes} do not split {t} rows")
+    out = torch.empty((t, w.shape[2]), dtype=x.dtype, device=x.device)
+    start = 0
+    for e, n in enumerate(sizes):
+        if n:
+            rows = slice(start, start + n)
+            out[rows] = (x[rows].float() @ w[e].float()).to(x.dtype)
+        start += n
+    return out

@@ -1,12 +1,17 @@
-"""The LM: composes attention and SSD blocks into an architecture (port of
-``repro/models/model.py``: config plumbing, ``init_params``, ``forward``,
-the stacked decode cache, ``prefill`` and ``decode_step``).
+"""The LM: composes attention, MoE and SSD blocks into an architecture
+(port of ``repro/models/model.py``: config plumbing, ``init_params``,
+``forward``, the stacked decode cache, ``prefill`` and ``decode_step``).
 
 Params are plain dicts of tensors with the JAX package's names; the layer
 groups of ``params["blocks"]`` are stacked along a leading group axis, as
 ``jax.lax.scan`` wants them there, and run here as a Python loop
 (``scan_layers`` and ``remat`` have no numeric effect). ``LM`` is a thin
 ``nn.Module`` veneer over the functions.
+
+``moe_impl`` picks the MoE dispatch of attention blocks with experts:
+``"kernel"`` (sort + grouped-matmul kernel, no token dropped; the card's
+path) or ``"einsum"`` (capacity-dropped dispatch, the JAX package's default
+``cfg.moe_impl``); see ``models.moe``.
 
 The decode cache mirrors the reference's tree (per block of a group
 ``{"k", "v"}`` or ``{"conv", "ssm"}``, each leaf stacked along the group
@@ -25,10 +30,10 @@ from torch import nn
 from .. import resolve_device
 from ..configs import ArchConfig
 from . import attention as attn
-from . import layers, ssm
+from . import layers, moe, ssm
 from .layers import Tensor
 
-_LATER = "the MoE / remaining-architectures slice"
+_LATER = "the remaining-architectures slice"
 
 
 # ---------------------------------------------------------------------------
@@ -36,9 +41,9 @@ _LATER = "the MoE / remaining-architectures slice"
 # ---------------------------------------------------------------------------
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(f"MoE blocks ({cfg.name}) come with {_LATER}")
+def _check_supported(cfg: ArchConfig, moe_impl: str = "kernel") -> None:
+    if moe_impl not in moe.IMPLS:
+        raise ValueError(f"moe_impl {moe_impl!r} not in {moe.IMPLS}")
     if cfg.shared_attn_every:
         raise NotImplementedError(
             f"the zamba2 shared attention block ({cfg.name}) comes with {_LATER}")
@@ -58,6 +63,17 @@ def attn_cfg_for(cfg: ArchConfig, kind: str) -> attn.AttnConfig:
         logit_softcap=cfg.attn_logit_softcap,
         window=cfg.local_window if kind == "local" else None,
         scale=cfg.attn_scale,
+    )
+
+
+def moe_cfg_for(cfg: ArchConfig) -> moe.MoEConfig:
+    return moe.MoEConfig(
+        d_model=cfg.d_model,
+        d_ff=cfg.d_ff,
+        num_experts=cfg.num_experts,
+        top_k=cfg.num_experts_per_tok,
+        capacity_factor=cfg.moe_capacity_factor,
+        act=cfg.mlp_act,
     )
 
 
@@ -108,46 +124,61 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
         "ln1": layers.rmsnorm_init(cfg.d_model, dev),
         "attn": attn.attn_init(gen, attn_cfg_for(cfg, kind)),
         "ln2": layers.rmsnorm_init(cfg.d_model, dev),
-        "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated),
     }
     if cfg.post_norms:
         p["post_ln1"] = layers.rmsnorm_init(cfg.d_model, dev)
         p["post_ln2"] = layers.rmsnorm_init(cfg.d_model, dev)
+    if cfg.num_experts:
+        p["moe"] = moe.moe_init(gen, moe_cfg_for(cfg))
+    else:
+        p["mlp"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                   gated=cfg.mlp_gated)
     return p
 
 
 def _apply_block(params: dict, cfg: ArchConfig, kind: str, x: Tensor,
-                 mix: Callable[[Tensor], Tensor]) -> Tensor:
+                 mix: Callable[[Tensor], Tensor],
+                 moe_impl: str) -> tuple[Tensor, Optional[Tensor]]:
     """One block around its mixer ``mix`` (attention or the SSD block,
     normed input -> output): pre-norm, residual, and for attention blocks
-    the MLP and gemma2's post-norms."""
+    the MLP or MoE and gemma2's post-norms. Returns (x, the MoE aux loss,
+    None without experts)."""
+    aux = None
     if kind == "mamba":
-        return x + mix(layers.rmsnorm(params["ln"], x))
+        return x + mix(layers.rmsnorm(params["ln"], x)), aux
     a = mix(layers.rmsnorm(params["ln1"], x))
     if cfg.post_norms:
         a = layers.rmsnorm(params["post_ln1"], a)
     x = x + a
     h = layers.rmsnorm(params["ln2"], x)
-    m = layers.mlp(params["mlp"], h, act=cfg.mlp_act)
+    if cfg.num_experts:
+        m, aux = moe.moe_apply(params["moe"], moe_cfg_for(cfg), h, moe_impl)
+    else:
+        m = layers.mlp(params["mlp"], h, act=cfg.mlp_act)
     if cfg.post_norms:
         m = layers.rmsnorm(params["post_ln2"], m)
-    return x + m
+    return x + m, aux
 
 
 def _run_blocks(params: dict, cfg: ArchConfig, x: Tensor, mix: Callable,
-                cache: Optional[dict] = None) -> Tensor:
+                moe_impl: str, cache: Optional[dict] = None
+                ) -> tuple[Tensor, Optional[Tensor]]:
     """Every block in order; ``mix(kind, block_params, block_cache, h)``
     runs a block's mixer, with ``block_cache`` a view into ``cache`` (None
-    without one)."""
+    without one). Returns (x, the summed MoE aux loss, None without
+    experts)."""
+    aux = None
     for gi in range(num_groups(cfg)):
         gparams = tree_map(lambda p: p[gi], params["blocks"])
         gcache = tree_map(lambda c: c[gi], cache) if cache is not None else None
         for i, kind in enumerate(group_pattern(cfg)):
             bp = gparams[str(i)]
             bc = gcache[str(i)] if gcache is not None else None
-            x = _apply_block(bp, cfg, kind, x,
-                             lambda h: mix(kind, bp, bc, h))
-    return x
+            x, a = _apply_block(bp, cfg, kind, x,
+                                lambda h: mix(kind, bp, bc, h), moe_impl)
+            if a is not None:
+                aux = a if aux is None else aux + a
+    return x, aux
 
 
 def _logits(params: dict, cfg: ArchConfig, x: Tensor) -> Tensor:
@@ -189,11 +220,12 @@ def _stack(trees: list[dict]) -> dict:
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: Tensor,
-            attn_impl: str = "kernel",
-            ssm_impl: str = "kernel") -> tuple[Tensor, Tensor]:
+            attn_impl: str = "kernel", ssm_impl: str = "kernel",
+            moe_impl: str = "kernel") -> tuple[Tensor, Tensor]:
     """Causal LM forward. tokens: [B, S] int -> (logits [B,S,V] f32, aux).
-    ``aux`` is the MoE load-balance loss of the JAX package, zero here."""
-    _check_supported(cfg)
+    ``aux`` is the MoE load-balance loss summed over the layers (f32; zero
+    without experts)."""
+    _check_supported(cfg, moe_impl)
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
@@ -205,9 +237,10 @@ def forward(params: dict, cfg: ArchConfig, tokens: Tensor,
             return ssm.ssm_apply(bp["ssm"], ssm_cfg_for(cfg), h, impl=ssm_impl)
         return attn.attend_full(bp["attn"], attn_cfg_for(cfg, kind), h,
                                 positions, impl=attn_impl)
-    x = _run_blocks(params, cfg, x, mix)
-    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32,
-                                                device=dev)
+    x, aux = _run_blocks(params, cfg, x, mix, moe_impl)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+    return _logits(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -265,11 +298,11 @@ def ssm_prefill(params: dict, scfg: ssm.SSMConfig, u: Tensor,
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: Tensor, cache: dict,
-            attn_impl: str = "kernel",
-            ssm_impl: str = "kernel") -> tuple[Tensor, dict]:
+            attn_impl: str = "kernel", ssm_impl: str = "kernel",
+            moe_impl: str = "kernel") -> tuple[Tensor, dict]:
     """Run the prompt, fill ``cache`` in place. Returns (logits [B,S,V]
     f32, cache)."""
-    _check_supported(cfg)
+    _check_supported(cfg, moe_impl)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
@@ -284,15 +317,16 @@ def prefill(params: dict, cfg: ArchConfig, tokens: Tensor, cache: dict,
             return y
         return attn.attend_prefill(bp["attn"], attn_cfg_for(cfg, kind), h,
                                    positions, bc, impl=attn_impl)[0]
-    x = _run_blocks(params, cfg, x, mix, cache)
+    x, _ = _run_blocks(params, cfg, x, mix, moe_impl, cache)
     return _logits(params, cfg, x), cache
 
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: Tensor, cache: dict,
-                pos: Tensor, attn_impl: str = "kernel") -> tuple[Tensor, dict]:
+                pos: Tensor, attn_impl: str = "kernel",
+                moe_impl: str = "kernel") -> tuple[Tensor, dict]:
     """One decode step. tokens: [B, 1], pos: [B] (write index). Advances
     ``cache`` in place. Returns (logits [B, 1, V] f32, cache)."""
-    _check_supported(cfg)
+    _check_supported(cfg, moe_impl)
     x = layers.embed_tokens(params["embed"], tokens, cfg.embed_scale,
                             compute_dtype(cfg))
 
@@ -301,7 +335,7 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: Tensor, cache: dict,
             return ssm.ssm_decode(bp["ssm"], ssm_cfg_for(cfg), h, bc)[0]
         return attn.attend_decode(bp["attn"], attn_cfg_for(cfg, kind), h, bc,
                                   pos, impl=attn_impl)[0]
-    x = _run_blocks(params, cfg, x, mix, cache)
+    x, _ = _run_blocks(params, cfg, x, mix, moe_impl, cache)
     return _logits(params, cfg, x), cache
 
 
@@ -317,7 +351,8 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, params: Optional[dict] = None, *,
                  device: str | torch.device = "cuda", seed: int = 0,
-                 attn_impl: str = "kernel", ssm_impl: str = "kernel"):
+                 attn_impl: str = "kernel", ssm_impl: str = "kernel",
+                 moe_impl: str = "kernel"):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -327,10 +362,11 @@ class LM(nn.Module):
         self.params = params
         self.attn_impl = attn_impl
         self.ssm_impl = ssm_impl
+        self.moe_impl = moe_impl
 
     def forward(self, tokens: Tensor) -> tuple[Tensor, Tensor]:
         return forward(self.params, self.cfg, tokens, self.attn_impl,
-                       self.ssm_impl)
+                       self.ssm_impl, self.moe_impl)
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -338,9 +374,9 @@ class LM(nn.Module):
 
     def prefill(self, tokens: Tensor, cache: dict) -> tuple[Tensor, dict]:
         return prefill(self.params, self.cfg, tokens, cache, self.attn_impl,
-                       self.ssm_impl)
+                       self.ssm_impl, self.moe_impl)
 
     def decode_step(self, tokens: Tensor, cache: dict,
                     pos: Tensor) -> tuple[Tensor, dict]:
         return decode_step(self.params, self.cfg, tokens, cache, pos,
-                           self.attn_impl)
+                           self.attn_impl, self.moe_impl)

@@ -1,0 +1,201 @@
+"""Mixture-of-Experts layer: top-k token-choice routing (port of
+``repro/models/moe.py``).
+
+Two dispatch implementations, chosen by ``moe_apply``'s ``impl``:
+
+* ``"kernel"`` — the counterpart of the JAX package's ``moe_gmm``: the
+  (token, choice) pairs are sorted by expert, the experts run as three
+  grouped matmuls (``kernels.ops.gmm``: the CUDA kernel on CUDA tensors, its
+  plain version on the CPU), and the outputs come back through the inverse
+  permutation. No token is dropped. The card's path: nothing in it reads a
+  device value back to the host.
+* ``"einsum"`` — the counterpart of ``moe_einsum``, the JAX package's
+  default ``moe_impl``: tokens are blocked into groups, each expert takes at
+  most ``capacity`` (token, choice) pairs of a group in (token, choice)
+  order, and the rest are dropped. The reference's one-hot dispatch and
+  combine einsums are written here as a scatter into the expert slots and a
+  gather back from them, which give the same result (each slot holds one
+  pair, each pair one slot).
+
+The two compute different functions wherever the capacity drops a pair.
+
+Router: softmax over the expert logits in fp32, top-k, renormalised weights,
+and the Switch-style load-balance loss ``E * sum_e mean_prob_e *
+mean_count_e``. ``moe_axes`` (sharding) waits for the sharding slice.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from ..kernels import ops as kops
+from .layers import _ACTS, Tensor, dense_init
+
+IMPLS = ("kernel", "einsum")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int                   # per-expert hidden
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    group_size: int = 256       # dispatch group (einsum impl)
+    act: str = "silu"
+
+
+def moe_init(gen: torch.Generator, cfg: MoEConfig) -> dict:
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    return {
+        "router": dense_init(gen, (d, e), d),
+        "wi": dense_init(gen, (e, d, f), d),
+        "wg": dense_init(gen, (e, d, f), d),
+        "wo": dense_init(gen, (e, f, d), f),
+    }
+
+
+def _counts(flat_e: Tensor, e: int) -> Tensor:
+    """Pairs per expert, int32, on the device of ``flat_e``. Not
+    ``torch.bincount``: on CUDA it reads the largest index back to the
+    host to size its output."""
+    ones = torch.ones_like(flat_e, dtype=torch.int32)
+    return torch.zeros(e, dtype=torch.int32,
+                       device=flat_e.device).scatter_add_(0, flat_e, ones)
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+
+
+def route(params: dict, cfg: MoEConfig, x: Tensor
+          ) -> tuple[Tensor, Tensor, Tensor]:
+    """Top-k routing. x: [T, D] ->
+    (weights [T, k] in x's dtype, expert_idx [T, k] int32, aux_loss f32)."""
+    logits = (x @ params["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    weights, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    weights = weights / weights.sum(dim=-1, keepdim=True)
+    e, t = cfg.num_experts, x.shape[0]
+    me = probs.mean(dim=0)                                  # mean router prob
+    ce = _counts(idx.reshape(-1), e).float() / t            # mean picks a token
+    aux = e * torch.sum(me * ce)
+    return weights.to(x.dtype), idx.to(torch.int32), aux
+
+
+# ---------------------------------------------------------------------------
+# einsum (capacity) dispatch
+# ---------------------------------------------------------------------------
+
+
+def _capacity(cfg: MoEConfig, group: int) -> int:
+    c = int(math.ceil(group * cfg.top_k * cfg.capacity_factor
+                      / cfg.num_experts))
+    return max(c, cfg.top_k)
+
+
+def capacity_slots(idx: Tensor, e: int, cap: int) -> tuple[Tensor, Tensor]:
+    """idx: [G, n] experts of each group's (token, choice) pairs in order ->
+    (rank of each pair among its expert's pairs of the group, kept mask:
+    rank < cap). Pairs past an expert's capacity are dropped."""
+    onehot = torch.nn.functional.one_hot(idx.long(), e)     # [G, n, e]
+    before = torch.cumsum(onehot, dim=1) - onehot
+    rank = before.gather(2, idx.long()[..., None])[..., 0]
+    return rank, rank < cap
+
+
+def moe_einsum(params: dict, cfg: MoEConfig, x: Tensor
+               ) -> tuple[Tensor, Tensor]:
+    """x: [B, S, D] -> ([B, S, D], aux_loss). Capacity-dropped dispatch."""
+    b, s, d = x.shape
+    t = b * s
+    g = min(cfg.group_size, t)
+    while t % g:                 # largest divisor of t <= group_size
+        g -= 1
+    n_groups = t // g
+    xt = x.reshape(t, d)
+    weights, idx, aux = route(params, cfg, xt)
+
+    e, k, dtype = cfg.num_experts, cfg.top_k, x.dtype
+    cap = _capacity(cfg, g)
+    pairs = idx.reshape(n_groups, g * k)
+    rank, keep = capacity_slots(pairs, e, cap)
+    # slot of each kept pair in its group's [e * cap] expert slots; the
+    # dropped ones go to one extra slot that is cut off again
+    slot = torch.where(keep, pairs.long() * cap + rank, e * cap)
+    src = xt.reshape(n_groups, g, 1, d).expand(n_groups, g, k, d)
+    src = src.reshape(n_groups, g * k, d)
+    xe = torch.zeros((n_groups, e * cap + 1, d), dtype=dtype, device=x.device)
+    xe.scatter_(1, slot[..., None].expand(-1, -1, d), src)
+    xe = xe[:, :e * cap].reshape(n_groups, e, cap, d)
+
+    h = torch.einsum("Gecd,edf->Gecf", xe, params["wi"].to(dtype))
+    gt = torch.einsum("Gecd,edf->Gecf", xe, params["wg"].to(dtype))
+    h = _ACTS[cfg.act](gt) * h
+    ye = torch.einsum("Gecf,efd->Gecd", h, params["wo"].to(dtype))
+    # combine: each pair's slot back (the extra slot is zero), weighted and
+    # summed over the k choices in fp32, as the combine einsum sums
+    ye = torch.cat([ye.reshape(n_groups, e * cap, d),
+                    ye.new_zeros((n_groups, 1, d))], dim=1)
+    yk = ye.gather(1, slot[..., None].expand(-1, -1, d))
+    yk = yk.reshape(n_groups, g, k, d).float()
+    w = weights.reshape(n_groups, g, k, 1).float()
+    y = (yk * w).sum(dim=2).to(dtype)
+    return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# sort-based dispatch + grouped matmul (the card's path)
+# ---------------------------------------------------------------------------
+
+
+def moe_gmm(params: dict, cfg: MoEConfig, x: Tensor
+            ) -> tuple[Tensor, Tensor]:
+    """x: [B, S, D] -> ([B, S, D], aux). Sort + grouped matmul. No value
+    leaves the device: the group sizes stay there and the kernel reads
+    them itself."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    weights, idx, aux = route(params, cfg, xt)
+
+    k, dtype = cfg.top_k, x.dtype
+    flat_e = idx.reshape(-1).long()                # [T*k]
+    order = torch.argsort(flat_e, stable=True)     # as jnp.argsort
+    xs = xt.index_select(0, order // k)            # [T*k, D] sorted by expert
+    group_sizes = _counts(flat_e, cfg.num_experts)
+
+    h = kops.gmm(xs, params["wi"].to(dtype), group_sizes)
+    g = kops.gmm(xs, params["wg"].to(dtype), group_sizes)
+    h = _ACTS[cfg.act](g) * h
+    ys = kops.gmm(h, params["wo"].to(dtype), group_sizes)
+    # combine: back through the inverse permutation to [T, k, D], weighted
+    # and summed over k (deterministic, no atomics)
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=order.device))
+    yk = ys.index_select(0, inv).reshape(t, k, d)
+    y = (yk * weights[..., None]).sum(dim=1)
+    return y.reshape(b, s, d), aux
+
+
+def moe_apply(params: dict, cfg: MoEConfig, x: Tensor,
+              impl: str = "kernel") -> tuple[Tensor, Tensor]:
+    if impl == "kernel":
+        return moe_gmm(params, cfg, x)
+    if impl == "einsum":
+        return moe_einsum(params, cfg, x)
+    raise ValueError(f"moe_impl {impl!r} not in {IMPLS}")
+
+
+def flops_per_token(cfg: MoEConfig, impl: str = "kernel") -> int:
+    """Analytic active MACs per token (experts + dispatch overhead)."""
+    expert = cfg.top_k * 3 * cfg.d_model * cfg.d_ff
+    router = cfg.d_model * cfg.num_experts
+    if impl == "einsum":
+        disp = 2 * cfg.group_size * cfg.top_k * cfg.capacity_factor * cfg.d_model
+    else:
+        disp = 0
+    return int(expert + router + disp)

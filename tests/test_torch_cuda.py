@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gmm as gmm_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd as ssd_mod
 
@@ -56,6 +57,9 @@ DECODE_CASES = [
     (3, 1000, 8, 4, 256, 100, 50.0),
     (2, 777, 4, 1, 128, 37, None),
     (3, 333, 16, 2, 64, None, 30.0),
+    (2, 300, 16, 1, 64, None, None),        # groups of 16
+    (1, 200, 32, 2, 16, 50, 30.0),
+    (2, 150, 16, 1, 128, 70, None),
 ]
 
 # the full-width GQA shapes: (label, s, n, kv, h, window, softcap)
@@ -64,6 +68,14 @@ DECODE_FULL = [
     ("gemma2-2b global", 5120, 8, 4, 256, None, 50.0),
     ("gemma-2b", 8192, 8, 1, 256, None, None),
     ("qwen1.5-4b", 4096, 20, 20, 128, None, None),
+    ("qwen3-moe", 1056, 64, 4, 128, None, None),     # a group of 16
+]
+
+GMM_CASES = [
+    # (t, d, f, e): tests/test_kernels.py's list, ragged tiles, and
+    # qwen3-moe's decode shape (8 rows over 128 experts, most empty)
+    (16, 8, 16, 2), (37, 16, 24, 4), (100, 32, 64, 8), (64, 16, 48, 16),
+    (300, 136, 200, 5), (8, 4096, 1536, 128),
 ]
 
 TOL = {torch.float32: dict(atol=3e-5, rtol=3e-5),
@@ -289,3 +301,115 @@ def test_served_models_launch_the_kernels(cuda):
                                          device=cuda))
         assert torch.isfinite(out).all()
     assert (fa.launches, ssd_mod.launches) == (2, 2)
+
+
+def _gmm_inputs(rng, t, d, f, e, dtype, device, sizes=None):
+    if sizes is None:
+        sizes = np.bincount(rng.integers(0, e, t), minlength=e)
+    x = rng.standard_normal((t, d), np.float32)
+    w = rng.standard_normal((e, d, f), np.float32) / np.sqrt(d)
+    return (torch.from_numpy(x).to(device, dtype),
+            torch.from_numpy(w).to(device, dtype),
+            torch.from_numpy(np.asarray(sizes, np.int32)).to(device))
+
+
+def _check_gmm(x, w, sizes):
+    before = gmm_mod.launches
+    got = ops.gmm(x, w, sizes)
+    torch.cuda.synchronize()
+    assert gmm_mod.launches == before + 1
+    want = ref.gmm(x.float(), w.float(), sizes)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[x.dtype])
+    if x.dtype == torch.bfloat16:
+        rel = float((got.float() - want).norm() / want.norm())
+        assert rel <= BF16_REL_L2, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GMM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_matches_plain(cuda, case, dtype):
+    _check_gmm(*_gmm_inputs(np.random.default_rng(19), *case, dtype, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes", [[5, 0, 0, 3], [0, 0, 0, 70], [70, 0, 0, 0],
+                                   [1, 64, 0, 65]])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_empty_groups_and_tile_edges(cuda, sizes, dtype):
+    """Empty experts, one expert with every row, and groups that end one
+    row into a tile or fill one exactly."""
+    rng = np.random.default_rng(23)
+    _check_gmm(*_gmm_inputs(rng, sum(sizes), 72, 80, 4, dtype, cuda, sizes))
+
+
+@pytest.mark.cuda
+def test_gmm_kernel_refuses_what_it_does_not_take(cuda):
+    x, w, sizes = _gmm_inputs(np.random.default_rng(0), 16, 8, 16, 2,
+                              torch.float32, cuda)
+    before = gmm_mod.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        gmm_mod.gmm(x.cpu(), w, sizes)
+    with pytest.raises(ValueError, match="dtypes"):
+        gmm_mod.gmm(x.to(torch.bfloat16), w, sizes)
+    with pytest.raises(ValueError, match="dtypes"):
+        gmm_mod.gmm(x.half(), w.half(), sizes)
+    with pytest.raises(ValueError, match="match"):
+        gmm_mod.gmm(x, w[:, :4].contiguous(), sizes)
+    with pytest.raises(ValueError, match="match"):
+        gmm_mod.gmm(x, w, sizes[:1])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gmm_mod.gmm(x[:, :6].contiguous(), w[:, :6].contiguous(), sizes)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_mod.gmm(x, w.transpose(1, 2).contiguous().transpose(1, 2), sizes)
+    with pytest.raises(ValueError, match="int32"):
+        gmm_mod.gmm(x, w, sizes.float())
+    assert gmm_mod.launches == before
+
+
+@pytest.mark.cuda
+def test_moe_gmm_makes_no_host_sync_on_the_card(cuda):
+    """The sort dispatch and its three kernel launches run with CUDA's
+    sync debug mode set to raise on any synchronising call."""
+    from repro_torch.models import moe
+    cfg = moe.MoEConfig(d_model=64, d_ff=128, num_experts=8, top_k=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = moe.moe_init(gen, cfg)
+    x = torch.randn((2, 12, 64), generator=gen, device=cuda)
+    want, want_aux = moe.moe_gmm({k: v.cpu() for k, v in params.items()},
+                                 cfg, x.cpu())
+    before = gmm_mod.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, aux = moe.moe_gmm(params, cfg, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert gmm_mod.launches == before + 3
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(float(aux), float(want_aux), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b"])
+def test_moe_decode_step_launches_gmm_three_times_a_layer(cuda, arch):
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    lm = M.LM(cfg, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12), device=cuda,
+                           dtype=torch.int32)
+    cache = lm.init_cache(2, 16, torch.float32)
+    logits, cache = lm.prefill(tokens, cache)
+    gmm_mod.launches = 0
+    nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    dlogits, _ = lm.decode_step(nxt, cache, torch.full((2,), 12, device=cuda,
+                                                       dtype=torch.int32))
+    assert gmm_mod.launches == 3 * cfg.num_layers
+    want, _ = lm(torch.cat([tokens, nxt], 1))
+    np.testing.assert_allclose(_np(dlogits[:, 0]), _np(want[:, -1]),
+                               atol=1e-3, rtol=1e-3)

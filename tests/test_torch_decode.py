@@ -515,6 +515,7 @@ def test_from_jax_params_carries_a_cache_tree_as_it_is():
 
 
 def test_decode_rejects_unported_blocks():
-    cfg = dataclasses.replace(tconfigs.smoke_config("gemma-2b"), num_experts=4)
+    cfg = dataclasses.replace(tconfigs.smoke_config("gemma-2b"),
+                              frontend="audio_frames")
     with pytest.raises(NotImplementedError, match="slice"):
         TM.init_cache(cfg, 1, 8, device="cpu")

@@ -27,7 +27,8 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import model as TM
 from repro_torch.models import ssm as tssm
 
-ARCHS = ["gemma-2b", "qwen1.5-4b", "gemma2-2b", "mamba2-130m"]
+ARCHS = ["gemma-2b", "qwen1.5-4b", "gemma2-2b", "mamba2-130m",
+         "phi3.5-moe-42b-a6.6b", "qwen3-moe-235b-a22b"]
 LAYER_TOL = dict(atol=1e-5, rtol=1e-5)
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 _REDRAWN = ("scale", "bq", "bk", "bv", "conv_b")
@@ -233,8 +234,8 @@ def jax_forward():
                                  rng)
             # S = 24 > the smoke window of 8, so gemma2's local layers mask
             tokens = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
-            logits, _ = JM.forward(_jax(params), cfg, jnp.asarray(tokens))
-            cache[arch] = (params, tokens, np.asarray(logits))
+            logits, aux = JM.forward(_jax(params), cfg, jnp.asarray(tokens))
+            cache[arch] = (params, tokens, np.asarray(logits), float(aux))
         return cache[arch]
     return get
 
@@ -242,14 +243,17 @@ def jax_forward():
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("impl", ["torch", "kernel"])
 def test_forward_matches_jax(jax_forward, arch, impl):
-    params, tokens, want = jax_forward(arch)
+    params, tokens, want, want_aux = jax_forward(arch)
     cfg = dataclasses.replace(tconfigs.smoke_config(arch), dtype="float32")
     if arch == "gemma2-2b":
         assert cfg.local_window < tokens.shape[1]
     got, aux = TM.forward(from_jax_params(params, "cpu"), cfg,
                           torch.from_numpy(tokens), attn_impl=impl,
                           ssm_impl=impl)
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    # the MoE archs' load-balance loss; zero without experts
+    assert got.dtype == aux.dtype == torch.float32
+    assert (float(aux) == 0.0) == (want_aux == 0.0) == (not cfg.num_experts)
+    np.testing.assert_allclose(float(aux), want_aux, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got.numpy(), want, **MODEL_TOL)
 
 
@@ -280,7 +284,8 @@ def test_init_params_needs_a_generator_on_the_device():
 
 
 def test_unported_blocks_raise_not_implemented():
-    cfg = dataclasses.replace(tconfigs.smoke_config("gemma-2b"), num_experts=4)
+    cfg = dataclasses.replace(tconfigs.smoke_config("gemma-2b"),
+                              shared_attn_every=2)
     with pytest.raises(NotImplementedError, match="slice"):
         TM.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
 
