@@ -11,11 +11,16 @@ Phases, each of which raises (exit code != 0) on any failure:
    ``build/`` (seconds and the ptxas register / spill report are printed);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the full-width shapes of the served models (gemma2-2b attention:
-   head_dim 256, window 4096, softcap 50; mamba2-130m SSD: 24 heads of 64,
-   state 128, chunk 256) and at smoke width, in float32 and bfloat16, timed
-   with CUDA events (median of several runs after warm-up); the bfloat16
-   flash cases also show that their gate rejects the kernel run with the
-   softcap dropped or the window cut;
+   head_dim 256, window 4096, softcap 50, at S 8192, 4608 (phase 7's
+   prefill) and 1024 (served); mamba2-130m SSD: 24 heads of 64,
+   state 128, chunk 256; phi3.5-moe's and qwen3-moe's attention prefills at
+   head_dim 128, groups of 4 and 16) and at smoke width, in float32 and
+   bfloat16, timed with CUDA events (median of several runs after warm-up;
+   flash and SDPA beside it with a cold L2); the bfloat16 flash cases also
+   show that their gate rejects the kernel run with the softcap dropped or
+   the window cut, and every flash call names the kernel it launched (the
+   wgmma kernel for bf16), which the serving, decode and MoE phases check
+   on their launch counters;
 4. model check: the four architectures at smoke width, float32, forward on
    the card (kernels) against forward on the CPU (plain versions);
 5. serving: the serve_rtmm workload through ``repro_torch.launch.serve`` and
@@ -146,6 +151,14 @@ def time_ms(fn, warmup: int = 2, reps: int = 5, flush=None) -> float:
     return statistics.median(times)
 
 
+def cold_l2(torch):
+    """A function that writes 64 MB on the card (the L2 holds 50 MB), for
+    ``time_ms``'s ``flush``: in a model step each layer reads its inputs and
+    weights once, so each timed run starts with a cold L2."""
+    scrub = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
+    return scrub.zero_
+
+
 def compare(name: str, got, want, tol: float) -> float:
     """Max abs error; raises unless |got - want| <= tol + tol * |want|."""
     import torch
@@ -191,36 +204,75 @@ def bound(flops: int, nbytes: int) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
+def flash_by_kernel(fa, what: str) -> dict:
+    """The flash launches since the last reset, by kernel. Every flash call
+    of the main path is bf16 at a head dim of WGMMA_HEAD_DIMS, so every one
+    must have gone through the wgmma kernel."""
+    by = dict(fa.kernel_launches)
+    log(f"[kernels] {what}: flash_attention launches by kernel {by}")
+    if by != {"wgmma": fa.launches, "fp32": 0}:
+        raise AssertionError(f"{what}: flash launches {by}, expected all "
+                             f"{fa.launches} on the wgmma kernel")
+    return by
+
+
+def reset_flash_counters(fa) -> None:
+    fa.launches = 0
+    fa.kernel_launches = dict.fromkeys(fa.kernel_launches, 0)
+
+
+# flash cases: label, B, S, N, K, H, window, softcap. The full-width ones are
+# also what ``scripts/time_flash.py`` times, FLASH_REPS runs each.
+FLASH_FULL_WIDTH = [
+    ("gemma2-2b local", 1, 8192, 8, 4, 256, 4096, 50.0),
+    ("gemma2-2b global", 1, 8192, 8, 4, 256, None, 50.0),
+    ("gemma2-2b prefill", 1, 4608, 8, 4, 256, None, 50.0),
+    ("gemma2-2b serving", 1, 1024, 8, 4, 256, 4096, 50.0),
+    ("phi3.5-moe prefill", 1, 1024, 32, 8, 128, None, None),
+    ("qwen3-moe prefill", 1, 1024, 64, 4, 128, None, None),
+]
+FLASH_SMOKE = [
+    ("smoke MQA", 1, 32, 4, 1, 16, None, None),
+    ("smoke MHA", 1, 32, 4, 4, 16, None, None),
+    ("smoke gemma2", 1, 32, 4, 4, 16, 8, 50.0),
+]
+FLASH_REPS = 10
+
+
+def flash_inputs(torch, gen, b, s, n, k, h, dtype):
+    """q, k, v on the card: q and k of deviation BF16_QK_STD in bfloat16;
+    float32 keeps unit inputs, where its 3e-5 sits above rounding."""
+    amp = BF16_QK_STD if dtype == torch.bfloat16 else 1.0
+    q = (amp * torch.randn((b, s, n, h), generator=gen,
+                           device="cuda")).to(dtype)
+    kk = (amp * torch.randn((b, s, k, h), generator=gen,
+                            device="cuda")).to(dtype)
+    v = torch.randn((b, s, k, h), generator=gen, device="cuda").to(dtype)
+    return q, kk, v
+
+
 def check_flash(torch, gen):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     import torch.nn.functional as F
 
-    cases = [
-        # label, B, S, N, K, H, window, softcap
-        ("gemma2-2b local", 1, 8192, 8, 4, 256, 4096, 50.0),
-        ("gemma2-2b global", 1, 8192, 8, 4, 256, None, 50.0),
-        ("gemma2-2b serving", 1, 1024, 8, 4, 256, 4096, 50.0),
-        ("smoke MQA", 1, 32, 4, 1, 16, None, None),
-        ("smoke MHA", 1, 32, 4, 4, 16, None, None),
-        ("smoke gemma2", 1, 32, 4, 4, 16, 8, 50.0),
-    ]
+    flush = cold_l2(torch)
     headline = None
-    for label, b, s, n, k, h, win, cap in cases:
+    for label, b, s, n, k, h, win, cap in FLASH_FULL_WIDTH + FLASH_SMOKE:
+        big = s >= 1024
         for dname, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
-            # float32 keeps unit inputs, where its 3e-5 sits above rounding
-            amp = BF16_QK_STD if dtype == torch.bfloat16 else 1.0
-            q = (amp * torch.randn((b, s, n, h), generator=gen,
-                                   device="cuda")).to(dtype)
-            kk = (amp * torch.randn((b, s, k, h), generator=gen,
-                                    device="cuda")).to(dtype)
-            v = torch.randn((b, s, k, h), generator=gen, device="cuda").to(dtype)
+            q, kk, v = flash_inputs(torch, gen, b, s, n, k, h, dtype)
             run = lambda **kw: ops.flash_attention(
                 q, kk, v, **{"window": win, "softcap": cap, **kw})
             plain = lambda: ref.attention(q, kk, v, window=win, softcap=cap)
+            before = dict(fa.kernel_launches)
             got = run()
             torch.cuda.synchronize()
+            kernel = fa.kernel_for(dtype, h)
+            if fa.kernel_launches[kernel] != before[kernel] + 1:
+                raise AssertionError(f"flash {label} {dname}: the {kernel} "
+                                     f"kernel was not launched")
             name = f"flash {label} {dname}"
             rel = None
             if dname == "float32":
@@ -244,27 +296,29 @@ def check_flash(torch, gen):
                                              f"reject the kernel with {what}")
                 del want
             del got
-            big = s >= 1024
-            ms = time_ms(run, reps=5 if big else 20)
-            plain_ms = time_ms(plain, reps=5 if big else 20)
+            ms = time_ms(run, reps=FLASH_REPS if big else 20, flush=flush)
+            plain_ms = time_ms(plain, reps=5 if big else 20, flush=flush)
             flops = fa.flops(b, s, s, n, h, True, win)
             nbytes = (2 * q.numel() + 2 * kk.numel()) * q.element_size()
             bound_ms, bound_by = bound(flops, nbytes)
             lib_ms = None
-            if label == "gemma2-2b global":
-                # yardstick the port never calls: SDPA, causal, no softcap
+            if big and (win is None or win >= s):
+                # yardstick the port never calls: SDPA, causal, no softcap,
+                # KV heads expanded (where the window does not bind, the
+                # same masks)
                 qt = q.transpose(1, 2).contiguous()
                 kt = kk.repeat_interleave(n // k, dim=2).transpose(1, 2).contiguous()
                 vt = v.repeat_interleave(n // k, dim=2).transpose(1, 2).contiguous()
                 lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True), reps=5)
+                    qt, kt, vt, is_causal=True), reps=10, flush=flush)
                 del qt, kt, vt
             core = (f" fp32_cuda_core_bound_ms={flops / PEAK_FP32_CORES * 1e3}"
                     if dname == "float32" else "")
             log(f"[kernels] flash_attention {label} {dname} B={b} S={s} N={n} "
-                f"K={k} H={h} window={win} softcap={cap}: max_abs_err={err} "
-                f"rel_l2_err={rel} ms={ms} plain_ms={plain_ms} "
-                f"bound_ms={bound_ms} ({bound_by}){core} library_ms={lib_ms}")
+                f"K={k} H={h} window={win} softcap={cap} kernel={kernel}: "
+                f"max_abs_err={err} rel_l2_err={rel} ms={ms} "
+                f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by})"
+                f"{core} library_ms={lib_ms}")
             if label == "gemma2-2b global" and dname == "bfloat16":
                 headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by,
@@ -546,10 +600,11 @@ def serve(torch) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for h in handles:
         calls[h.name] = 0
-    fa.launches = 0
+    reset_flash_counters(fa)
     ssd_mod.launches = 0
     report = engine.run(q, duration_s=5.0)
     launches = {"flash_attention": fa.launches, "ssd": ssd_mod.launches}
+    flash_by_kernel(fa, "serving run")
 
     log(f"[serve] {report.summary()}")
     log(f"[serve] (alpha, beta) = ({report.alpha}, {report.beta}); "
@@ -652,10 +707,7 @@ def check_decode_kernel(torch, gen, cases=DECODE_KERNEL_CASES):
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import ops, ref
     import torch.nn.functional as F
-    # in a model step each layer's cache is read once, so every timed run
-    # starts with a cold L2: 64 MB written in between (the L2 holds 50 MB)
-    scrub = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
-    flush = scrub.zero_
+    flush = cold_l2(torch)
     headline = None
     for label, s, n, k, h, win, cap, pos_list in cases:
         b = len(pos_list)
@@ -740,7 +792,6 @@ def check_decode_kernel(torch, gen, cases=DECODE_KERNEL_CASES):
                                 library_ms=lib_ms)
             del q, kc, vc
             torch.cuda.empty_cache()
-    del scrub
     return headline
 
 
@@ -835,7 +886,8 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
 
     with torch.inference_mode():
         cache = M.init_cache(cfg, 1, max_seq, torch.bfloat16, "cuda")
-        fa.launches = ssd_mod.launches = 0
+        reset_flash_counters(fa)
+        ssd_mod.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = M.prefill(params, cfg, tokens, cache)
@@ -843,6 +895,7 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
         prefill_s = time.perf_counter() - t0
         prefill_launches = {"flash_attention": fa.launches,
                             "ssd": ssd_mod.launches}
+        flash_by_kernel(fa, f"{arch} prefill of {prompt}")
         nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         del logits
         fed, outs, step_ms = [], [], []
@@ -1014,8 +1067,7 @@ def check_gmm_kernel(torch, gen):
         ("qwen3-moe wi decode", 8, 4096, 1536, 128, (1, 8), both, True),
         ("qwen3-moe wo decode", 8, 1536, 4096, 128, (1, 8), both, False),
     ]
-    scrub = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
-    flush = scrub.zero_
+    flush = cold_l2(torch)
     headline = None
     for label, t, d, f, e, sizes_spec, dnames, timed in cases:
         if sizes_spec is None:
@@ -1093,7 +1145,6 @@ def check_gmm_kernel(torch, gen):
                                 library_ms=lib_ms)
             del x, w
             torch.cuda.empty_cache()
-    del scrub
     return headline
 
 
@@ -1231,7 +1282,8 @@ def moe_full_width(torch, arch: str, layers: int, prompt: int, steps: int,
         prefill_ms = (time.perf_counter() - t0) * 1e3
         # the counted run: the tapped prefill (it writes the same cache
         # again) and the steps
-        fa.launches = dec.launches = gmm_mod.launches = 0
+        reset_flash_counters(fa)
+        dec.launches = gmm_mod.launches = 0
         ops.gmm, moe.route = tapped_gmm, tapped_route
         try:
             plog, cache = M.prefill(params, cfg, tokens, cache)
@@ -1268,6 +1320,7 @@ def moe_full_width(torch, arch: str, layers: int, prompt: int, steps: int,
             nxt = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
         launches = {"flash_attention": fa.launches,
                     "decode_attention": dec.launches, "gmm": gmm_mod.launches}
+        flash_by_kernel(fa, f"{arch} prefill and steps")
         want_l = {"flash_attention": layers, "decode_attention": steps * layers,
                   "gmm": (1 + steps) * layers * 3}
         if launches != want_l:
@@ -1372,7 +1425,7 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
-    ptxas_report(build.build_log(), ("gmm_", "Li128ELi16E"))
+    ptxas_report(build.build_log(), ("gmm_", "Li128ELi16E", "flash_wgmma_kernel"))
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -9,32 +9,44 @@
 // key tiles in order inside itself: that loop replaces the sequential fourth
 // grid axis of the TPU kernel, so nothing carries between blocks and no
 // atomics are needed. Key tiles that are fully masked (past the diagonal, or
-// entirely below the window) are skipped with the TPU kernel's two tests.
-// GQA reads KV head n / (N / K) directly, so the expanded KV is never built.
-// Two kernels share that structure:
-//  * bfloat16 (the serving path): tensor cores through mma.sync m16n8k16
-//    with fp32 accumulation, FlashAttention-2 style. Four warps each own 16
-//    of the block's 64 query rows; Q, K and V^T tiles of 64 keys sit in
-//    shared memory as bf16 (rows padded against bank conflicts); the logits,
-//    the softmax statistics and the output accumulator stay in registers
-//    (128 floats a thread at head_dim 256), and the probabilities go to the
-//    PV product as bf16 straight from the logits' registers, as the plain
-//    version casts them to the compute dtype.
+// entirely below the window) are never visited. GQA reads KV head
+// n / (N / K) directly, so the expanded KV is never built. Two kernels:
+//  * bfloat16 (the serving path), every head_dim of HEAD_DIMS: a Hopper
+//    kernel on wgmma. A block of 384 threads owns 128 query rows: one
+//    producer warpgroup, whose single elected thread issues TMA loads (Q
+//    once; K and V tiles of 64 keys at head_dim 256, else 128, into a ring
+//    of 2-4 stages tracked by mbarriers), and two consumer warpgroups of 64
+//    rows (setmaxnreg 240 against the producer's 24). S = Q K^T is a wgmma
+//    with both operands in shared memory (K rows are K-major as stored);
+//    O += P V takes P from the logits' registers as bf16 A fragments (the
+//    S accumulator layout is the A-fragment layout) and V through the
+//    descriptor's transpose bit. Tiles are stored as TMA's 128/64/32-byte
+//    swizzle writes them (the swizzle width is the row's bytes, up to 128),
+//    so no thread copies or transposes data. The softmax runs in log2
+//    units with ex2; the softcap is c * (1 - 2 / (1 + 2^(2 log2(e) x / c)))
+//    with ex2 and rcp (exact to float rounding at both ends, where
+//    tanh.approx's 2^-11 would move a logit near the cap by ~0.02); the
+//    mask is built only on diagonal, window-edge and ragged tiles. The two
+//    consumer warpgroups take turns to issue QK^T (named barriers), so one's
+//    softmax overlaps the other's products. Causal grids run the longest
+//    query tiles first.
 //  * float32: CUDA-core FMAs on 32x32 tiles held in shared memory as fp32,
 //    with each thread's share of the accumulator in registers, so float32
 //    stays float32 (tensor cores would round it to TF32).
 //
 // What bounds it. At the main path's shapes (gemma2-2b: head_dim 256,
 // S = 1024..8192) attention is operation-bound: ~4*S*S/2*H flops per head
-// against S*H*2 bytes each of Q, K, V, O. mma.sync reaches only part of the
-// bf16 tensor-core rate that wgmma with TMA-fed tiles gives; that is the
-// later step.
+// against S*H*2 bytes each of Q, K, V, O. With a softcap each logit also
+// costs three MUFU operations (two ex2 and one rcp), about three quarters of
+// the tensor-core time of its tile at head_dim 256, which is why the two
+// warpgroups overlap one's softmax with the other's products.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -225,214 +237,266 @@ __global__ void __launch_bounds__(NT) flash_f32_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16, fp32 accumulation)
+// bfloat16: wgmma fed by TMA, one producer warp, two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int MQ = 64;   // query rows per block, 16 per warp
-constexpr int MK = 64;   // keys per tile
-constexpr int MT = 128;  // threads per block (4 warps)
+using bf16 = __nv_bfloat16;
+constexpr int WG_BQ = 128;        // query rows per block: 2 consumer warpgroups of 64
+constexpr int WG_THREADS = 384;   // 2 consumer warpgroups + 1 producer warpgroup
+constexpr int WG_CONSUMERS = 256;
+constexpr int SMEM_MAX = 232448;  // what a block may ask for on sm_90
 
-// Shared memory layout of the bf16 kernel, in bf16 elements. Rows are padded
-// by 8 elements (16 bytes), so the 8 rows a fragment load touches start 4
-// banks apart and 16-byte row chunks stay aligned.
+// Tiles and shared memory of the wgmma kernel at head_dim H. A Q, K or V
+// tile is NC column chunks of CW columns (RB = 2 * CW bytes a row, the
+// swizzle width), each chunk a [rows][CW] block as one TMA box writes it.
 template <int H>
-struct MmaLayout {
-  static constexpr int RS = H + 8;
-  static constexpr int q = 0;                 // Q tile  [MQ][RS]
-  static constexpr int k = q + MQ * RS;       // K tile  [MK][RS]
-  static constexpr int v = k + MK * RS;       // V tile  [MK][RS]
-  static constexpr size_t bytes = (v + MK * RS) * sizeof(__nv_bfloat16);
+struct WgCfg {
+  static constexpr int BK = H == 256 ? 64 : 128;   // keys per tile
+  static constexpr int CW = H < 64 ? H : 64;
+  static constexpr int RB = 2 * CW;
+  static constexpr int NC = H / CW;
+  static constexpr int LAYOUT = repro::hopper::desc_layout(RB);
+  static constexpr int Q_BYTES = WG_BQ * H * 2;
+  static constexpr int KV_BYTES = BK * H * 2;        // one K or V tile
+  static constexpr int BAR_BYTES = 256;
+  static constexpr int FIT = (SMEM_MAX - 1024 - BAR_BYTES - Q_BYTES) / (2 * KV_BYTES);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static_assert(STAGES >= 2, "the K/V ring needs two stages");
+  // 1024: slack to round the base up to the 1024-byte boundary that the
+  // swizzle atoms (and so the descriptors) assume
+  static constexpr size_t bytes = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES;
+  static_assert(bytes <= SMEM_MAX, "shared memory");
 };
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 sum
-__device__ __forceinline__ void mma16816(float d[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Two transposed 8x8 bf16 tiles: lanes 0-15 give the row addresses.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
+// Threads 0-255 are the consumers (warpgroup w owns query rows 64w..64w+63
+// of the block's tile), threads 256-383 the producer, of which one thread
+// issues every TMA load. Q is loaded once; K and V tiles of BK keys pass
+// through a ring of STAGES slots, each with a "full" barrier (TMA bytes)
+// and an "empty" one (all 256 consumer threads release it). The consumer
+// warpgroups take turns to issue their QK^T product (named barriers 1 and
+// 2), so that one's softmax runs while the other's products use the tensor
+// cores.
 template <int H>
-__global__ void __launch_bounds__(MT) flash_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-    int N, int K, float scale, bool causal, int window, float softcap) {
-  static_assert(H % 16 == 0, "head_dim must be a multiple of 16");
-  using L = MmaLayout<H>;
-  constexpr int NO = H / 8;    // output column tiles of 8
-  constexpr int NS = MK / 8;   // logit key tiles of 8
-  constexpr int V8 = H / 8;    // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* qs = sm + L::q;
-  __nv_bfloat16* ks = sm + L::k;
-  __nv_bfloat16* vs = sm + L::v;
+__global__ void __launch_bounds__(WG_THREADS, 1) flash_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int Sq, int Sk, int N,
+    int K, float scale, bool causal, int window, float softcap) {
+  namespace hp = repro::hopper;
+  using C = WgCfg<H>;
+  constexpr int BK = C::BK, S = C::STAGES, RB = C::RB, CW = C::CW;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = base;
+  unsigned char* ks = qs + C::Q_BYTES;               // slot s at ks + s * KV_BYTES
+  unsigned char* vs = ks + S * C::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + S * C::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + S;
+  uint64_t* v_full = k_empty + S;
+  uint64_t* v_empty = v_full + S;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;     // mma fragment coordinates
-  const int q_start = blockIdx.x * MQ;
-  const int n = blockIdx.y;
-  const int b = blockIdx.z;
+  const int n = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * WG_BQ;   // the longest tiles first
   const int kvh = n / (N / K);
-  const size_t q_row = static_cast<size_t>(N) * H;
-  const size_t k_row = static_cast<size_t>(K) * H;
-  const __nv_bfloat16* qb = q + static_cast<size_t>(b) * Sq * q_row + static_cast<size_t>(n) * H;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(b) * Sk * k_row + static_cast<size_t>(kvh) * H;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(b) * Sk * k_row + static_cast<size_t>(kvh) * H;
-  __nv_bfloat16* ob = out + static_cast<size_t>(b) * Sq * q_row + static_cast<size_t>(n) * H;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  // the block's live key tiles: none past the last row's diagonal, none
+  // wholly below the first row's window
+  int kt_hi = (Sk + BK - 1) / BK - 1;
+  if (causal) kt_hi = min(kt_hi, (q0 + WG_BQ - 1) / BK);
+  const int kt_lo = window > 0 ? max(0, (q0 - window + 1) / BK) : 0;
 
-  for (int idx = tid; idx < MQ * V8; idx += MT) {
-    const int r = idx / V8, c = (idx % V8) * 8, qi = q_start + r;
-    *reinterpret_cast<uint4*>(qs + r * L::RS + c) =
-        qi < Sq ? *reinterpret_cast<const uint4*>(qb + qi * q_row + c) : zero;
+  if (threadIdx.x == 0) {
+    hp::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hp::mbar_init(&k_full[s], 1);
+      hp::mbar_init(&v_full[s], 1);
+      hp::mbar_init(&k_empty[s], WG_CONSUMERS);
+      hp::mbar_init(&v_empty[s], WG_CONSUMERS);
+    }
+    hp::fence_mbar_init();
   }
+  __syncthreads();
 
-  float o[NO][4];
+  if (threadIdx.x >= WG_CONSUMERS) {
+    // ---- producer ----
+    hp::reg_dealloc<24>();
+    if (threadIdx.x == WG_CONSUMERS) {
+      hp::mbar_expect_tx(q_full, C::Q_BYTES);
 #pragma unroll
-  for (int i = 0; i < NO; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};   // rows g and g + 8 of this warp
-  float l[2] = {0.f, 0.f};
-  const int wq0 = q_start + warp * 16;   // this warp's first and last rows
-  const int wq1 = wq0 + 15;
-  const int qi0 = wq0 + g, qi1 = qi0 + 8;
-
-  const int q_last = q_start + MQ - 1;
-  const int n_kt = (Sk + MK - 1) / MK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k_start = kt * MK;
-    if (causal && k_start > q_last) break;   // every later tile is masked too
-    if (causal && window > 0 && k_start + MK - 1 <= q_start - window) continue;
-
-    __syncthreads();  // the previous tile's readers are done with ks, vs
-    for (int idx = tid; idx < MK * V8; idx += MT) {
-      const int r = idx / V8, c = (idx % V8) * 8, ki = k_start + r;
-      const bool in = ki < Sk;   // zeros past Sk: p = 0 must not meet NaN
-      *reinterpret_cast<uint4*>(ks + r * L::RS + c) =
-          in ? *reinterpret_cast<const uint4*>(kb + ki * k_row + c) : zero;
-      *reinterpret_cast<uint4*>(vs + r * L::RS + c) =
-          in ? *reinterpret_cast<const uint4*>(vb + ki * k_row + c) : zero;
-    }
-    __syncthreads();
-    // the same two tests for this warp's 16 rows alone (no block barrier below)
-    if (causal && k_start > wq1) continue;
-    if (causal && window > 0 && k_start + MK - 1 <= wq0 - window) continue;
-
-    // logits S = Q K^T: 16 rows x 64 keys per warp
-    float s[NS][4];
+      for (int c = 0; c < C::NC; ++c)
+        hp::tma_load_4d(qs + c * WG_BQ * RB, &tq, q_full, c * CW, n, q0, b);
+      for (int kt = kt_lo, i = 0; kt <= kt_hi; ++kt, ++i) {
+        const int s = i % S;
+        const uint32_t ph = (i / S) & 1;
+        hp::mbar_wait(&k_empty[s], ph ^ 1);
+        hp::mbar_expect_tx(&k_full[s], C::KV_BYTES);
 #pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        for (int c = 0; c < C::NC; ++c)
+          hp::tma_load_4d(ks + s * C::KV_BYTES + c * BK * RB, &tk, &k_full[s], c * CW, kvh,
+                          kt * BK, b);
+        hp::mbar_wait(&v_empty[s], ph ^ 1);
+        hp::mbar_expect_tx(&v_full[s], C::KV_BYTES);
 #pragma unroll
-    for (int k0 = 0; k0 < H; k0 += 16) {
-      const __nv_bfloat16* qr = qs + (warp * 16 + g) * L::RS + k0 + t4 * 2;
-      const uint32_t a[4] = {ld32(qr), ld32(qr + 8 * L::RS), ld32(qr + 8),
-                             ld32(qr + 8 * L::RS + 8)};
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const __nv_bfloat16* kr = ks + (j * 8 + g) * L::RS + k0 + t4 * 2;
-        mma16816(s[j], a, ld32(kr), ld32(kr + 8));
+        for (int c = 0; c < C::NC; ++c)
+          hp::tma_load_4d(vs + s * C::KV_BYTES + c * BK * RB, &tv, &v_full[s], c * CW, kvh,
+                          kt * BK, b);
       }
     }
+  } else {
+    // ---- consumers ----
+    hp::reg_alloc<240>();
+    const int wg = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int wq0 = q0 + wg * 64;                       // this warpgroup's rows
+    const int wq1 = wq0 + 63;
+    const int r0 = wq0 + (tid / 32) * 16 + g;           // this thread's rows r0, r0 + 8
+    constexpr float LOG2E = 1.4426950408889634f;
+    const bool cap = softcap > 0.f;
+    // logits in log2 units: s * scale * log2(e), or with the softcap
+    // c * tanh(s * scale / c) * log2(e) = cl2 - 2 * cl2 / (1 + 2^(s * tc))
+    const float sl2 = scale * LOG2E;
+    const float tc = cap ? 2.f * LOG2E * scale / softcap : 0.f;
+    const float cl2 = softcap * LOG2E;
 
-    // scale, softcap (before the max), mask; element (j, e) is row
-    // qi0 (e < 2) or qi1, key k_start + 8 j + 2 t4 + (e & 1)
-    float mx[2] = {-INFINITY, -INFINITY};
+    float o[H / 2];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
+    for (int i = 0; i < H / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};   // running max (log2 units) of rows r0, r0 + 8
+    float l[2] = {0.f, 0.f};               // this thread's share of the row sums
+
+    // descriptors of the warpgroup's 64 Q rows and of slot 0 of K and V
+    const uint64_t dq = hp::make_desc(qs + wg * 64 * RB, 16, 8 * RB, C::LAYOUT);
+    const uint64_t dk = hp::make_desc(ks, 16, 8 * RB, C::LAYOUT);
+    const uint64_t dv = hp::make_desc(vs, BK * RB, 8 * RB, C::LAYOUT);
+
+    if (wg == 1) hp::bar_arrive(1, WG_CONSUMERS);   // warpgroup 0 issues first
+    hp::mbar_wait(q_full, 0);
+    for (int kt = kt_lo, i = 0; kt <= kt_hi; ++kt, ++i) {
+      const int s = i % S;
+      const uint32_t ph = (i / S) & 1;
+      const int k0 = kt * BK;
+
+      // S = Q K^T
+      float sc[BK / 2];
+      hp::mbar_wait(&k_full[s], ph);
+      hp::bar_sync(1 + wg, WG_CONSUMERS);
+      hp::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        if (!allowed(e < 2 ? qi0 : qi1, k_start + j * 8 + t4 * 2 + (e & 1), Sk, causal,
-                     window))
-          x = NEG_INF;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      for (int kk = 0; kk < H / 16; ++kk) {
+        const uint32_t c = kk * 16 / CW, in_row = (kk * 16 % CW) * 2;   // chunk, bytes
+        hp::wgmma_ss<BK>(sc, hp::desc_add(dq, c * WG_BQ * RB + in_row),
+                         hp::desc_add(dk, s * C::KV_BYTES + c * BK * RB + in_row), kk > 0);
       }
+      hp::wgmma_commit();
+      hp::bar_arrive(2 - wg, WG_CONSUMERS);           // the other warpgroup's turn
+      hp::wgmma_wait<0>();
+      hp::reg_fence(sc);
+      hp::mbar_arrive(&k_empty[s]);
+
+      // scale, softcap (before the max), and the mask on edge tiles only:
+      // element e is row r0 + 8 * ((e >> 1) & 1), key k0 + 8 * (e >> 2) +
+      // 2 * t4 + (e & 1)
+      if (cap) {
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) sc[e] = cl2 - 2.f * cl2 * rcp(1.f + ex2(sc[e] * tc));
+      } else {
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) sc[e] *= sl2;
+      }
+      if (k0 + BK > Sk || (causal && k0 + BK - 1 > wq0) || (window > 0 && k0 <= wq1 - window)) {
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) {
+          const int qi = r0 + 8 * ((e >> 1) & 1);
+          const int ki = k0 + 8 * (e >> 2) + 2 * t4 + (e & 1);
+          if (ki >= Sk || (causal && ki > qi) || (window > 0 && ki <= qi - window))
+            sc[e] = -INFINITY;
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+      // online softmax; the 4 lanes of a quad share a row. Masked logits are
+      // -inf, so they give p = 0, and a row with nothing live yet keeps
+      // m = -inf and takes m_safe = 0 (the reference's guard).
+      float m_safe[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        m_safe[r] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[r] = ex2(m[r] - m_safe[r]);   // 0 while m = -inf
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+      uint32_t p[BK / 16][4];   // P as the A fragments of the PV product
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int e = 8 * kk + 2 * f;
+          const float p0 = ex2(sc[e] - m_safe[(f & 1)]);
+          const float p1 = ex2(sc[e + 1] - m_safe[(f & 1)]);
+          l[f & 1] += p0 + p1;
+          p[kk][f] = pack_bf16(p0, p1);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < H / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+
+      // O += P V, V read MN-major from its slot
+      hp::mbar_wait(&v_full[s], ph);
+      hp::reg_fence(o);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) hp::reg_fence(p[kk]);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hp::wgmma_rs<H>(o, p[kk], hp::desc_add(dv, s * C::KV_BYTES + kk * 16 * RB), 1);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::reg_fence(o);
+      hp::mbar_arrive(&v_empty[s]);
     }
-    // online softmax; the 4 lanes of a group share a row
-    float m_safe[2], alpha[2];
+    if (wg == 0) hp::bar_sync(1, WG_CONSUMERS);   // warpgroup 1's last turn signal
+
+    // epilogue: the row sums across the quad, the l = 0 guard, bf16 rows
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      m_safe[r] = m_new == -INFINITY ? 0.f : m_new;   // all-masked rows
-      alpha[r] = m[r] == -INFINITY ? 0.f : expf(m[r] - m_safe[r]);
-      m[r] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int qi = r0 + 8 * r;
+      if (qi < Sq) {
+        const float den = lr == 0.f ? 1.f : lr;
+        bf16* orow = out + ((static_cast<size_t>(b) * Sq + qi) * N + n) * H + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = allowed(e < 2 ? qi0 : qi1, k_start + j * 8 + t4 * 2 + (e & 1), Sk,
-                                causal, window);
-        const float p = ok ? expf(s[j][e] - m_safe[e >> 1]) : 0.f;
-        s[j][e] = p;
-        rs[e >> 1] += p;
+        for (int j = 0; j < H / 8; ++j)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+              pack_bf16(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
       }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l[r] = alpha[r] * l[r] + rs[r];
-    }
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-      o[i][0] *= alpha[0];
-      o[i][1] *= alpha[0];
-      o[i][2] *= alpha[1];
-      o[i][3] *= alpha[1];
-    }
-
-    // O += P V, with P in bf16 straight from the logit registers
-#pragma unroll
-    for (int kk = 0; kk < MK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vr = vs + (kk * 16 + lane % 16) * L::RS;
-#pragma unroll
-      for (int i = 0; i < NO; ++i) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, vr + i * 8);
-        mma16816(o[i], a, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = r == 0 ? qi0 : qi1;
-    if (qi < Sq) {
-      const float den = l[r] == 0.f ? 1.f : l[r];
-      __nv_bfloat16* orow = ob + qi * q_row + t4 * 2;
-#pragma unroll
-      for (int i = 0; i < NO; ++i)
-        *reinterpret_cast<uint32_t*>(orow + i * 8) =
-            pack_bf16(o[i][2 * r] / den, o[i][2 * r + 1] / den);
     }
   }
 }
@@ -459,14 +523,26 @@ template <int H>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                         int Sk, int N, int K, float scale, int causal, int window,
                         float softcap, cudaStream_t stream) {
-  auto kernel = flash_bf16_kernel<H>;
-  const size_t bytes = MmaLayout<H>::bytes;
-  cudaError_t err = repro::allow_smem(kernel, bytes);
+  using C = WgCfg<H>;
+  namespace hp = repro::hopper;
+  // one map per operand over (H, heads, S, B): rows past S inside a batch
+  // load as zeros, and a box never reaches into the next batch
+  CUtensorMap tq, tk, tv;
+  const uint32_t q_box[4] = {C::CW, 1, WG_BQ, 1};
+  const uint32_t kv_box[4] = {C::CW, 1, C::BK, 1};
+  const uint64_t q_dims[4] = {H, static_cast<uint64_t>(N), static_cast<uint64_t>(Sq),
+                              static_cast<uint64_t>(B)};
+  const uint64_t kv_dims[4] = {H, static_cast<uint64_t>(K), static_cast<uint64_t>(Sk),
+                               static_cast<uint64_t>(B)};
+  cudaError_t err = hp::encode_bf16_4d(&tq, q, q_dims, q_box, C::RB);
+  if (err == cudaSuccess) err = hp::encode_bf16_4d(&tk, k, kv_dims, kv_box, C::RB);
+  if (err == cudaSuccess) err = hp::encode_bf16_4d(&tv, v, kv_dims, kv_box, C::RB);
   if (err != cudaSuccess) return err;
-  using bf16 = __nv_bfloat16;
-  kernel<<<dim3((Sq + MQ - 1) / MQ, N, B), MT, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), Sq, Sk, N, K, scale, causal != 0, window, softcap);
+  auto kernel = flash_wgmma_kernel<H>;
+  err = repro::allow_smem(kernel, C::bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(N, B, (Sq + WG_BQ - 1) / WG_BQ), WG_THREADS, C::bytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), Sq, Sk, N, K, scale, causal != 0, window, softcap);
   return cudaGetLastError();
 }
 

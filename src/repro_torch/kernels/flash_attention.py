@@ -4,6 +4,11 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``). The CUDA source says how it is laid out and what bounds
 it. Its plain PyTorch version is ``ref.attention``; ``ops.flash_attention``
 pads the sequence and picks between the two by the device of the tensors.
+
+The source holds two kernels: bfloat16 runs the Hopper kernel (wgmma, a
+TMA-fed K/V ring, a producer warp) at every head_dim of ``WGMMA_HEAD_DIMS``,
+float32 the CUDA-core kernel. ``kernel_for`` names the one a call takes and
+``kernel_launches`` counts each.
 """
 from __future__ import annotations
 
@@ -16,10 +21,24 @@ from . import build
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims at which bfloat16 runs the wgmma kernel (all of HEAD_DIMS)
+WGMMA_HEAD_DIMS = HEAD_DIMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches of the CUDA kernel since the last reset (set to 0 to reset)
+#: launches of the CUDA kernels since the last reset (set to 0 to reset)
 launches = 0
+#: the same launches by kernel (see ``kernel_for``; reset by assigning zeros)
+kernel_launches = {"wgmma": 0, "fp32": 0}
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel of ``csrc/flash_attention.cu`` a call in ``dtype`` at
+    ``head_dim`` launches: "wgmma" (bfloat16) or "fp32"."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if dtype == torch.float32 and head_dim in HEAD_DIMS:
+        return "fp32"
+    raise ValueError(f"no flash kernel for {dtype} at head_dim {head_dim}")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -74,6 +93,7 @@ def flash_attention(
             window or 0, float(softcap or 0.0), stream)
     build.check(lib, err, "flash_attention launch")
     launches += 1
+    kernel_launches[kernel_for(q.dtype, h)] += 1
     return out
 
 

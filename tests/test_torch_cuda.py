@@ -36,6 +36,12 @@ FLASH_CASES = [
     (1, 128, 8, 2, 64, 64, 30.0),
     (1, 300, 8, 4, 256, 100, 50.0),
     (1, 200, 4, 2, 128, None, None),
+    # the wgmma kernel's edges: two batches apart in one tensor map, ragged
+    # S, a window cutting mid-tile and a softcap; a group of 16; S shorter
+    # than one 128-row query tile
+    (2, 777, 8, 4, 256, 300, 50.0),
+    (1, 1000, 64, 4, 128, None, None),
+    (1, 40, 8, 4, 256, None, 50.0),
 ]
 
 SSD_CASES = [
@@ -278,6 +284,44 @@ def test_decode_step_launches_the_kernel_once_a_layer(cuda, arch):
     assert dec.launches == attn_layers
     np.testing.assert_allclose(_np(dlogits[:, 0]), _np(want[:, -1]),
                                atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1, 256, 4, 2, 64, None, None),
+                                  (2, 256, 4, 4, 256, 100, 30.0),
+                                  (1, 384, 8, 2, 128, 50, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_noncausal_matches_plain(cuda, case, dtype):
+    """Non-causal attention (block-aligned, as ops requires), with a window
+    that masks the older keys only and skips whole tiles below it."""
+    b, s, n, kv, h, win, cap = case
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(cuda, dtype) for shape in
+               ((b, s, n, h), (b, s, kv, h), (b, s, kv, h)))
+    got = ops.flash_attention(q, k, v, causal=False, window=win, softcap=cap)
+    want = ref.attention(q.float(), k.float(), v.float(), causal=False,
+                         window=win, softcap=cap)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    if dtype == torch.bfloat16:
+        rel = float((got.float() - want).norm() / want.norm())
+        assert rel <= BF16_REL_L2, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", fa.WGMMA_HEAD_DIMS)
+def test_flash_bf16_launches_the_wgmma_kernel(cuda, h):
+    rng = np.random.default_rng(h)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 150, 4, h), np.float32))
+               .to(cuda, torch.bfloat16) for _ in range(3))
+    before = dict(fa.kernel_launches)
+    got = ops.flash_attention(q, k, v)
+    ops.flash_attention(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert fa.kernel_launches == {"wgmma": before["wgmma"] + 1,
+                                  "fp32": before["fp32"] + 1}
+    want = ref.attention(q.float(), k.float(), v.float())
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda

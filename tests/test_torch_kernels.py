@@ -224,12 +224,30 @@ def test_ssd_dt0_padding_is_a_no_op():
 
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     fa.launches = ssd_mod.launches = 0
+    by_kernel = dict(fa.kernel_launches)
     q, k, v = (torch.from_numpy(a) for a in
                _qkv(np.random.default_rng(1), 1, 16, 2, 1, 16))
     ops.flash_attention(q, k, v)
+    ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
     ops.ssd(*[torch.from_numpy(a) for a in
               _ssd_inputs(np.random.default_rng(1), 1, 16, 2, 8, 16)], chunk=8)
     assert (fa.launches, ssd_mod.launches) == (0, 0)
+    assert fa.kernel_launches == by_kernel
+
+
+@pytest.mark.parametrize("h", fa.HEAD_DIMS)
+def test_flash_kernel_for_names_the_kernel_of_each_dtype(h):
+    assert h in fa.WGMMA_HEAD_DIMS
+    assert fa.kernel_for(torch.bfloat16, h) == "wgmma"
+    assert fa.kernel_for(torch.float32, h) == "fp32"
+
+
+@pytest.mark.parametrize("dtype, h", [(torch.float16, 64),
+                                      (torch.bfloat16, 24),
+                                      (torch.float32, 512)])
+def test_flash_kernel_for_refuses_what_no_kernel_takes(dtype, h):
+    with pytest.raises(ValueError, match="no flash kernel"):
+        fa.kernel_for(dtype, h)
 
 
 def test_kernel_bindings_refuse_cpu_tensors():
