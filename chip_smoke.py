@@ -15,12 +15,16 @@ Phases, each of which raises (exit code != 0) on any failure:
    prefill) and 1024 (served); mamba2-130m SSD: 24 heads of 64,
    state 128, chunk 256; phi3.5-moe's and qwen3-moe's attention prefills at
    head_dim 128, groups of 4 and 16) and at smoke width, in float32 and
-   bfloat16, timed with CUDA events (median of several runs after warm-up;
-   flash and SDPA beside it with a cold L2); the bfloat16 flash cases also
-   show that their gate rejects the kernel run with the softcap dropped or
-   the window cut, and every flash call names the kernel it launched (the
-   wgmma kernel for bf16), which the serving, decode and MoE phases check
-   on their launch counters;
+   bfloat16, timed with CUDA events (median of several runs after warm-up,
+   a cold L2 and the host's launch path off the clock; SDPA beside flash);
+   the bfloat16 flash cases also show that their gate rejects the kernel
+   run with the softcap dropped or the window cut, the bfloat16 SSD cases
+   that theirs rejects the scan run as two halves with the state not
+   carried across the split and the scan run with dt shifted by one
+   position (each margin printed); every flash call names the kernel it
+   launched (the wgmma kernel for bf16) and every SSD call launches each of
+   its four kernels once, which the serving, decode and MoE phases check on
+   their launch counters;
 4. model check: the four architectures at smoke width, float32, forward on
    the card (kernels) against forward on the CPU (plain versions);
 5. serving: the serve_rtmm workload through ``repro_torch.launch.serve`` and
@@ -46,16 +50,19 @@ Phases, each of which raises (exit code != 0) on any failure:
 8. MoE: the grouped-matmul kernel against its plain version (the
    reference's cases, empty groups, one group of every row, groups ending
    mid-tile, and phi3.5-moe's and qwen3-moe's full-width prefill and decode
-   shapes), its bfloat16 gate shown rejecting a row moved to the next expert
-   and a dropped partial row tile, timed with a cold L2 beside
-   ``torch._grouped_mm`` and the bound; the decode kernel at qwen3-moe's
+   shapes, wi and wo), each call on the kernel ``gmm.kernel_for`` names
+   (wgmma past 64 rows, the split of D up to 64), its bfloat16 gate shown
+   rejecting a row moved to the next expert and a dropped partial row tile
+   (each margin printed), timed with a cold L2 beside ``torch._grouped_mm``
+   and the bound; the decode kernel at qwen3-moe's
    group of 16 with phase 7's gates; both MoE architectures at smoke width
    under both moe_impl values, card against CPU; phi3.5-moe at its published
    width cut to 4 layers (1024-token prefill, 32 greedy steps) and qwen3-moe
    cut to 2 (1024 + 8), every grouped-matmul call of the prefill and of the
    first and last step held against float32, the routing flips between bf16
    and float32 counted, the logits held on the tokens routed alike, the
-   launch counters against (prefill + steps) x layers x 3.
+   launch counters against (prefill + steps) x layers x 3, the prefill's on
+   the wgmma kernel and the steps' on the split path.
 
 The ``kernels`` line's launches add up each kernel's counted runs: flash
 over the serving run and the MoE prefills, SSD over the serving run,
@@ -328,30 +335,60 @@ def check_flash(torch, gen):
     return headline
 
 
+# SSD cases: label, B, S, H, P, N, chunk. The full-width ones (mamba2-130m:
+# 24 heads of 64, state 128, chunk 256, at S 4096 and the served 1024) are
+# also what ``scripts/time_kernels.py`` times, KERNEL_REPS runs each.
+SSD_FULL_WIDTH = [
+    ("mamba2-130m", 1, 4096, 24, 64, 128, 256),
+    ("mamba2-130m serving", 1, 1024, 24, 64, 128, 256),
+]
+SSD_SMOKE = [
+    ("smoke", 1, 16, 4, 32, 16, 8),
+    ("ragged", 2, 100, 3, 16, 32, 32),
+]
+KERNEL_REPS = 20
+
+
+def ssd_inputs(torch, gen, b, s, h, p, n, dtype):
+    """x, dt, A, B, C, D on the card: dt = softplus(N(0,1) - 4) (mean ~0.03,
+    a state that carries over tens of positions), A = -1 .. -16 across the
+    heads, as mamba2's A_log init spans; x in ``dtype``, the rest float32."""
+    import torch.nn.functional as F
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn((b, s, h), generator=gen, device="cuda") - 4.0)
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    B = torch.randn((b, s, n), generator=gen, device="cuda")
+    C = torch.randn((b, s, n), generator=gen, device="cuda")
+    D = torch.ones((h,), device="cuda")
+    return x, dt, A, B, C, D
+
+
+def ssd_by_kernel(ssd_mod, what: str) -> None:
+    """Every SSD call launches the four kernels of ``csrc/ssd.cu`` once."""
+    by = dict(ssd_mod.kernel_launches)
+    log(f"[kernels] {what}: ssd launches by kernel {by}")
+    if by != dict.fromkeys(by, ssd_mod.launches):
+        raise AssertionError(f"{what}: ssd kernel launches {by}, expected "
+                             f"{ssd_mod.launches} of each")
+
+
+def reset_ssd_counters(ssd_mod) -> None:
+    ssd_mod.launches = 0
+    ssd_mod.kernel_launches = dict.fromkeys(ssd_mod.kernel_launches, 0)
+
+
 def check_ssd(torch, gen):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd as ssd_mod
     import torch.nn.functional as F
 
-    cases = [
-        # label, B, S, H, P, N, chunk
-        ("mamba2-130m", 1, 4096, 24, 64, 128, 256),
-        ("mamba2-130m serving", 1, 1024, 24, 64, 128, 256),
-        ("smoke", 1, 16, 4, 32, 16, 8),
-        ("ragged", 2, 100, 3, 16, 32, 32),
-    ]
+    flush = cold_l2(torch)
     headline = None
-    for label, b, s, h, p, n, ch in cases:
+    for label, b, s, h, p, n, ch in SSD_FULL_WIDTH + SSD_SMOKE:
         for dname, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
-            x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
-            dt = F.softplus(torch.randn((b, s, h), generator=gen,
-                                        device="cuda") - 4.0)
-            A = -torch.linspace(1.0, 16.0, h, device="cuda")
-            B = torch.randn((b, s, n), generator=gen, device="cuda")
-            C = torch.randn((b, s, n), generator=gen, device="cuda")
-            D = torch.ones((h,), device="cuda")
-            run = lambda: ops.ssd(x, dt, A, B, C, D, chunk=ch)
+            x, dt, A, B, C, D = ssd_inputs(torch, gen, b, s, h, p, n, dtype)
+            run = lambda d_t=dt: ops.ssd(x, d_t, A, B, C, D, chunk=ch)
             sp = s + (-s) % min(ch, s)
             pad = lambda t: F.pad(t, [0, 0] * (t.ndim - 2) + [0, sp - s])
 
@@ -360,8 +397,12 @@ def check_ssd(torch, gen):
                                          D, chunk=min(ch, s))
                 return y[:, :s], fin
 
+            before = dict(ssd_mod.kernel_launches)
             y, fin = run()
             torch.cuda.synchronize()
+            if ssd_mod.kernel_launches != {k: v + 1 for k, v in before.items()}:
+                raise AssertionError(f"ssd {label} {dname}: the four kernels "
+                                     f"were not each launched once")
             y_ref, fin_ref = plain()
             tol = SSD_TOL_FP32 if dname == "float32" else TOL[dname]
             err = compare(f"ssd {label} {dname} y", y, y_ref, tol)
@@ -372,16 +413,37 @@ def check_ssd(torch, gen):
                 # and against the plain version in float32 on the same x
                 y32, _ = ref.ssd_chunked(pad(x.float()), pad(dt), A, pad(B),
                                          pad(C), D, chunk=min(ch, s))
-                _, rel = check_bf16(f"ssd {label} bf16 y", y, y32[:, :s])
-                del y32
+                y32 = y32[:, :s]
+                _, rel = check_bf16(f"ssd {label} bf16 y", y, y32)
+                # the gate must reject the scan run as two halves with the
+                # state not carried across the split, and dt shifted by one
+                # position
+                half = s // 2
+                halves = torch.cat([
+                    ops.ssd(x[:, sl], dt[:, sl], A, B[:, sl], C[:, sl], D,
+                            chunk=ch)[0]
+                    for sl in (slice(0, half), slice(half, s))], dim=1)
+                shifted = run(d_t=torch.roll(dt, 1, dims=1))[0]
+                for what, bad in (("the state not carried across the "
+                                   f"split at {half}", halves),
+                                  ("dt shifted by one position", shifted)):
+                    rb = rel_l2(bad, y32)
+                    log(f"[kernels] ssd {label} bf16 with {what}: relative L2 "
+                        f"err {rb} (gate {BF16_REL_L2}, margin "
+                        f"{rb / BF16_REL_L2})")
+                    if rb <= BF16_REL_L2:
+                        raise AssertionError(f"ssd {label} bf16: the gate does "
+                                             f"not reject the kernel with "
+                                             f"{what}")
+                del y32, halves, shifted
             if s <= 128:   # the sequential definition, too
                 y_seq, fin_seq = ref.ssd(x, dt, A, B, C, D)
                 compare(f"ssd {label} {dname} y (sequential)", y, y_seq, tol)
                 compare(f"ssd {label} {dname} state (sequential)", fin,
                         fin_seq, SSD_TOL_FP32)
             big = s >= 1024
-            ms = time_ms(run, reps=5 if big else 20)
-            plain_ms = time_ms(plain, reps=5 if big else 20)
+            ms = time_ms(run, reps=KERNEL_REPS, flush=flush)
+            plain_ms = time_ms(plain, reps=5 if big else 20, flush=flush)
             flops = ssd_mod.flops(b, sp, h, p, n, min(ch, s))
             nbytes = (2 * x.numel() * x.element_size()
                       + 4 * (dt.numel() + B.numel() + C.numel() + 2 * h
@@ -601,10 +663,11 @@ def serve(torch) -> dict:
     for h in handles:
         calls[h.name] = 0
     reset_flash_counters(fa)
-    ssd_mod.launches = 0
+    reset_ssd_counters(ssd_mod)
     report = engine.run(q, duration_s=5.0)
     launches = {"flash_attention": fa.launches, "ssd": ssd_mod.launches}
     flash_by_kernel(fa, "serving run")
+    ssd_by_kernel(ssd_mod, "serving run")
 
     log(f"[serve] {report.summary()}")
     log(f"[serve] (alpha, beta) = ({report.alpha}, {report.beta}); "
@@ -887,7 +950,7 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
     with torch.inference_mode():
         cache = M.init_cache(cfg, 1, max_seq, torch.bfloat16, "cuda")
         reset_flash_counters(fa)
-        ssd_mod.launches = 0
+        reset_ssd_counters(ssd_mod)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = M.prefill(params, cfg, tokens, cache)
@@ -896,6 +959,7 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
         prefill_launches = {"flash_attention": fa.launches,
                             "ssd": ssd_mod.launches}
         flash_by_kernel(fa, f"{arch} prefill of {prompt}")
+        ssd_by_kernel(ssd_mod, f"{arch} prefill of {prompt}")
         nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         del logits
         fed, outs, step_ms = [], [], []
@@ -979,16 +1043,23 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
     return dict(launches=launches, ms_per_token=med)
 
 
+#: the decode runs at full width: (arch, prompt, decode steps, cache rows,
+#: seed); gemma2-2b's prompt runs past its 4096-token window
+DECODE_FULL_WIDTH = [
+    ("gemma2-2b", 4608, 32, 5120, 5),
+    ("mamba2-130m", 1024, 32, 1056, 6),
+]
+
+
 def decode(torch, gen):
     headline = check_decode_kernel(torch, gen)
     check_decode_models(torch)
-    g2 = decode_full_width(torch, "gemma2-2b", prompt=4608, steps=32,
-                           max_seq=5120, seed=5)
-    mb = decode_full_width(torch, "mamba2-130m", prompt=1024, steps=32,
-                           max_seq=1056, seed=6)
-    log(f"[decode] median ms per decoded token: gemma2-2b "
-        f"{g2['ms_per_token']}, mamba2-130m {mb['ms_per_token']}")
-    return headline, g2["launches"] + mb["launches"]
+    runs = {arch: decode_full_width(torch, arch, prompt=prompt, steps=steps,
+                                    max_seq=max_seq, seed=seed)
+            for arch, prompt, steps, max_seq, seed in DECODE_FULL_WIDTH}
+    log("[decode] median ms per decoded token: " + ", ".join(
+        f"{arch} {r['ms_per_token']}" for arch, r in runs.items()))
+    return headline, sum(r["launches"] for r in runs.values())
 
 
 # ---------------------------------------------------------------------------
@@ -1034,6 +1105,47 @@ def gmm_library(torch, x, w, sizes):
     return loop, "per-expert torch.matmul loop"
 
 
+# gmm cases: label, T, D, F, E, sizes (None: each row's expert at random;
+# (tokens, k): tokens routed to k experts each; else a list), dtypes. The
+# full-width ones (phi3.5-moe and qwen3-moe, wi and wo, at a 1024-token
+# prefill and at one decoded token) are timed, and are also what
+# ``scripts/time_kernels.py`` times.
+BOTH, BF16 = ("float32", "bfloat16"), ("bfloat16",)
+GMM_FULL_WIDTH = [
+    ("phi3.5-moe wi prefill", 2048, 4096, 6400, 16, (1024, 2), BF16),
+    ("phi3.5-moe wo prefill", 2048, 6400, 4096, 16, (1024, 2), BF16),
+    ("phi3.5-moe wi decode", 2, 4096, 6400, 16, (1, 2), BOTH),
+    ("phi3.5-moe wo decode", 2, 6400, 4096, 16, (1, 2), BOTH),
+    ("qwen3-moe wi prefill", 8192, 4096, 1536, 128, (1024, 8), BF16),
+    ("qwen3-moe wo prefill", 8192, 1536, 4096, 128, (1024, 8), BF16),
+    ("qwen3-moe wi decode", 8, 4096, 1536, 128, (1, 8), BOTH),
+    ("qwen3-moe wo decode", 8, 1536, 4096, 128, (1, 8), BOTH),
+]
+GMM_SMOKE = [(f"reference {c}", *c, None, BOTH) for c in GMM_REF_CASES] + [
+    ("empty groups", 8, 8, 8, 4, [5, 0, 0, 3], BOTH),
+    ("one group of all rows", 300, 136, 200, 5, [0, 0, 300, 0, 0], BOTH),
+    ("groups ending mid-tile", 321, 72, 80, 4, [65, 1, 127, 128], BOTH),
+]
+
+
+def gmm_inputs(torch, gen, t, d, f, e, sizes_spec, dtype):
+    """(rows per expert as a list, the same on the card as int32, x, w):
+    x of unit deviation, w scaled by D^-1/2."""
+    if sizes_spec is None:
+        sizes_l = torch.bincount(torch.randint(
+            0, e, (t,), generator=gen, device="cuda"), minlength=e).tolist()
+    elif isinstance(sizes_spec, tuple):
+        sizes_l = routed_sizes(torch, gen, sizes_spec[0], e, sizes_spec[1])
+    else:
+        sizes_l = list(sizes_spec)
+    assert sum(sizes_l) == t, (t, sizes_l)
+    sizes = torch.tensor(sizes_l, dtype=torch.int32, device="cuda")
+    x = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((e, d, f), generator=gen, device="cuda")
+         * d ** -0.5).to(dtype)
+    return sizes_l, sizes, x, w
+
+
 def check_gmm_kernel(torch, gen):
     """The grouped-matmul kernel against its plain version: the reference's
     cases, empty groups, one group of every row, groups that end mid-tile,
@@ -1041,52 +1153,30 @@ def check_gmm_kernel(torch, gen):
     and qwen3-moe (wi and wo at 8192 and 8 rows, most of 128 experts empty
     at decode). float32 within 3e-5 (the reference's tolerance); bf16
     against the plain version in float32 on the same inputs within
-    BF16_REL_L2 (one rounding, of the output). The bf16 gate must reject the
-    kernel run with one row moved to the next expert and with the last
-    partial row tile dropped. Times: cold L2, host launch path off the
-    clock, beside the bound and the library call."""
+    BF16_REL_L2 (one rounding, of the output). Each call must take the
+    kernel ``kernel_for`` names. The bf16 gate must reject the kernel run
+    with one row moved to the next expert and with the last partial row
+    tile dropped. Times: cold L2, host launch path off the clock, beside the
+    bound and the library call."""
     from repro_torch.kernels import gmm as gmm_mod
     from repro_torch.kernels import ops, ref
 
-    both, bf16 = ("float32", "bfloat16"), ("bfloat16",)
-    cases = [(f"reference {c}", *c, None, both, False) for c in GMM_REF_CASES]
-    cases += [
-        # label, T, D, F, E, sizes (None: routed), dtypes, timed
-        ("empty groups", 8, 8, 8, 4, [5, 0, 0, 3], both, False),
-        ("one group of all rows", 300, 136, 200, 5, [0, 0, 300, 0, 0], both,
-         False),
-        ("groups ending mid-tile", 321, 72, 80, 4, [65, 1, 127, 128], both,
-         False),
-        ("phi3.5-moe wi prefill", 2048, 4096, 6400, 16, (1024, 2), bf16, True),
-        ("phi3.5-moe wo prefill", 2048, 6400, 4096, 16, (1024, 2), bf16, True),
-        ("phi3.5-moe wi decode", 2, 4096, 6400, 16, (1, 2), both, True),
-        ("phi3.5-moe wo decode", 2, 6400, 4096, 16, (1, 2), both, False),
-        ("qwen3-moe wi prefill", 8192, 4096, 1536, 128, (1024, 8), bf16, True),
-        ("qwen3-moe wo prefill", 8192, 1536, 4096, 128, (1024, 8), bf16,
-         False),
-        ("qwen3-moe wi decode", 8, 4096, 1536, 128, (1, 8), both, True),
-        ("qwen3-moe wo decode", 8, 1536, 4096, 128, (1, 8), both, False),
-    ]
     flush = cold_l2(torch)
     headline = None
-    for label, t, d, f, e, sizes_spec, dnames, timed in cases:
-        if sizes_spec is None:
-            sizes_l = torch.bincount(torch.randint(
-                0, e, (t,), generator=gen, device="cuda"), minlength=e).tolist()
-        elif isinstance(sizes_spec, tuple):
-            sizes_l = routed_sizes(torch, gen, sizes_spec[0], e, sizes_spec[1])
-        else:
-            sizes_l = sizes_spec
-        assert sum(sizes_l) == t, (label, sizes_l)
-        sizes = torch.tensor(sizes_l, dtype=torch.int32, device="cuda")
+    for label, t, d, f, e, sizes_spec, dnames in GMM_SMOKE + GMM_FULL_WIDTH:
+        timed = label in {c[0] for c in GMM_FULL_WIDTH}
         for dname in dnames:
             dtype = getattr(torch, dname)
-            x = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
-            w = (torch.randn((e, d, f), generator=gen, device="cuda")
-                 * d ** -0.5).to(dtype)
+            sizes_l, sizes, x, w = gmm_inputs(torch, gen, t, d, f, e,
+                                              sizes_spec, dtype)
             run = lambda xx=x, ss=sizes: ops.gmm(xx, w, ss)
+            kernel = gmm_mod.kernel_for(dtype, t)
+            before = dict(gmm_mod.kernel_launches)
             got = run()
             torch.cuda.synchronize()
+            if gmm_mod.kernel_launches[kernel] != before[kernel] + 1:
+                raise AssertionError(f"gmm {label} {dname}: the {kernel} "
+                                     f"kernel was not launched")
             name = f"gmm {label} {dname}"
             rel = None
             if dname == "float32":
@@ -1117,7 +1207,7 @@ def check_gmm_kernel(torch, gen):
                 for what, bad in faults:
                     rb = rel_l2(bad, want)
                     log(f"[moe] gmm {label} bf16 with {what}: relative L2 err "
-                        f"{rb} (gate {BF16_REL_L2})")
+                        f"{rb} (gate {BF16_REL_L2}, margin {rb / BF16_REL_L2})")
                     if rb <= BF16_REL_L2:
                         raise AssertionError(f"{name}: the gate does not "
                                              f"reject the kernel with {what}")
@@ -1128,17 +1218,17 @@ def check_gmm_kernel(torch, gen):
             nbytes = gmm_mod.hbm_bytes(sizes_l, d, f, x.element_size())
             bound_ms, bound_by = bound(flops, nbytes)
             if timed:
-                ms = time_ms(run, reps=20, flush=flush)
+                ms = time_ms(run, reps=KERNEL_REPS, flush=flush)
                 plain_ms = time_ms(lambda: ref.gmm(x, w, sizes), reps=5,
                                    flush=flush)
                 lib_fn, lib_name = gmm_library(torch, x, w, sizes)
-                lib_ms = time_ms(lib_fn, reps=20, flush=flush)
+                lib_ms = time_ms(lib_fn, reps=KERNEL_REPS, flush=flush)
             live_e = sum(1 for n in sizes_l if n)
             log(f"[moe] gmm {label} {dname} T={t} D={d} F={f} E={e} "
-                f"({live_e} with rows): max_abs_err={err} rel_l2_err={rel} "
-                f"ms={ms} plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}, "
-                f"{nbytes} bytes, {flops} flops) library_ms={lib_ms} "
-                f"({lib_name})")
+                f"({live_e} with rows) kernel={kernel}: max_abs_err={err} "
+                f"rel_l2_err={rel} ms={ms} plain_ms={plain_ms} "
+                f"bound_ms={bound_ms} ({bound_by}, {nbytes} bytes, {flops} "
+                f"flops) library_ms={lib_ms} ({lib_name})")
             if label == "phi3.5-moe wi prefill":
                 headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by,
@@ -1146,6 +1236,14 @@ def check_gmm_kernel(torch, gen):
             del x, w
             torch.cuda.empty_cache()
     return headline
+
+
+def gmm_by_kernel(gmm_mod, what: str, want: dict) -> None:
+    """The gmm launches since the last reset, by kernel, against ``want``."""
+    by = dict(gmm_mod.kernel_launches)
+    log(f"[moe] {what}: gmm launches by kernel {by}")
+    if by != want:
+        raise AssertionError(f"{what}: gmm launches {by}, expected {want}")
 
 
 def check_moe_models(torch) -> None:
@@ -1284,6 +1382,7 @@ def moe_full_width(torch, arch: str, layers: int, prompt: int, steps: int,
         # again) and the steps
         reset_flash_counters(fa)
         dec.launches = gmm_mod.launches = 0
+        gmm_mod.kernel_launches = dict.fromkeys(gmm_mod.kernel_launches, 0)
         ops.gmm, moe.route = tapped_gmm, tapped_route
         try:
             plog, cache = M.prefill(params, cfg, tokens, cache)
@@ -1321,6 +1420,11 @@ def moe_full_width(torch, arch: str, layers: int, prompt: int, steps: int,
         launches = {"flash_attention": fa.launches,
                     "decode_attention": dec.launches, "gmm": gmm_mod.launches}
         flash_by_kernel(fa, f"{arch} prefill and steps")
+        # the prefill's rows (prompt x k) take the wgmma kernel, a step's k
+        # rows the split path
+        gmm_by_kernel(gmm_mod, f"{arch} prefill and steps",
+                      {"wgmma": layers * 3, "wgmma_splitk": steps * layers * 3,
+                       "fp32": 0})
         want_l = {"flash_attention": layers, "decode_attention": steps * layers,
                   "gmm": (1 + steps) * layers * 3}
         if launches != want_l:
@@ -1381,17 +1485,24 @@ def moe_full_width(torch, arch: str, layers: int, prompt: int, steps: int,
     return launches
 
 
+#: the MoE runs at full width: (arch, layers, prompt, decode steps, cache
+#: rows, seed); depth cut to fit the card: phi3.5-moe's 32 layers are ~83 GB
+#: in bf16
+MOE_FULL_WIDTH = [
+    (MOE_ARCHS[0], 4, 1024, 32, 1056, 7),
+    (MOE_ARCHS[1], 2, 1024, 8, 1056, 8),
+]
+
+
 def moe_phase(torch, gen):
     headline = check_gmm_kernel(torch, gen)
     check_decode_kernel(torch, gen, [
         ("qwen3-moe (group 16)", 1056, 64, 4, 128, None, None, [1040])])
     check_moe_models(torch)
-    # depth cut to fit the card: phi3.5-moe's 32 layers are ~83 GB in bf16
-    phi = moe_full_width(torch, MOE_ARCHS[0], layers=4, prompt=1024,
-                         steps=32, max_seq=1056, seed=7)
-    qwen = moe_full_width(torch, MOE_ARCHS[1], layers=2, prompt=1024,
-                          steps=8, max_seq=1056, seed=8)
-    return headline, {n: phi[n] + qwen[n] for n in phi}
+    runs = [moe_full_width(torch, arch, layers=layers, prompt=prompt,
+                           steps=steps, max_seq=max_seq, seed=seed)
+            for arch, layers, prompt, steps, max_seq, seed in MOE_FULL_WIDTH]
+    return headline, {n: sum(r[n] for r in runs) for n in runs[0]}
 
 
 def main() -> int:
@@ -1425,7 +1536,7 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
-    ptxas_report(build.build_log(), ("gmm_", "Li128ELi16E", "flash_wgmma_kernel"))
+    ptxas_report(build.build_log(), ("gmm_", "ssd_", "flash_wgmma_kernel"))
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(0)

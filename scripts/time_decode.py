@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Times the port's decode path end to end at ``chip_smoke.py``'s
+full-width decode and MoE runs, and the host's enqueue time of one
+grouped-matmul call at its decode shapes.
+
+    python3 scripts/time_decode.py [--root CHECKOUT]
+
+For each run of ``DECODE_FULL_WIDTH`` and ``MOE_FULL_WIDTH`` (the same
+architectures, depths, prompts, cache rows and seeds as ``chip_smoke.py``'s
+phases 7 and 8; bf16, random weights from the seed): ``prefill`` of the
+prompt, one untimed step, then ``STEPS`` greedy ``decode_step``s, each timed
+on the host's clock between two synchronisations, as ``chip_smoke.py`` times
+them; prints the median, min and max ms per decoded token. Then, at each
+decode case of ``GMM_FULL_WIDTH``, the median over ``ENQUEUE_REPS`` calls of
+the host time that ``ops.gmm`` takes to return, each call started on an idle
+card: what a call adds to a host-bound step. No output is checked here;
+``chip_smoke.py`` does that.
+
+``repro_torch`` is imported from ``CHECKOUT/src`` (default: this checkout):
+two commits are compared on one card in one run by unpacking the other into
+a git-ignored directory and running both in turns (A, B, B, A). Prints the
+card's name and power limit, then one line per run. Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import statistics
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(HERE))
+import chip_smoke as cs  # noqa: E402
+
+STEPS = 31           # timed decode steps, after one untimed (the caches
+                     # hold 32 rows past the prompt)
+ENQUEUE_REPS = 200   # timed gmm calls a case
+
+
+def step_times(torch, M, params, cfg, prompt: int, max_seq: int,
+               gen) -> list[float]:
+    """ms of each of ``STEPS`` greedy decode steps after a prefill."""
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    times = []
+    with torch.inference_mode():
+        cache = M.init_cache(cfg, 1, max_seq, torch.bfloat16, "cuda")
+        logits, cache = M.prefill(params, cfg, tokens, cache)
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        for i in range(STEPS + 1):
+            pos = torch.full((1,), prompt + i, dtype=torch.int32,
+                             device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = M.decode_step(params, cfg, nxt, cache, pos)
+            torch.cuda.synchronize()
+            if i:                                  # the first step warms up
+                times.append((time.perf_counter() - t0) * 1e3)
+            nxt = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
+    return times
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(HERE))
+    args = ap.parse_args()
+    # ahead of the src/ that chip_smoke put on the path
+    sys.path.insert(0, str(Path(args.root).resolve() / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("time_decode: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_compute_dtype
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cs.log(f"[time_decode] {cs.gpu_name_and_power()}; repro_torch from "
+           f"{Path(ops.__file__).resolve().parents[1]}")
+    runs = [(arch, None, prompt, max_seq, seed)
+            for arch, prompt, _, max_seq, seed in cs.DECODE_FULL_WIDTH]
+    runs += [(arch, layers, prompt, max_seq, seed)
+             for arch, layers, prompt, _, max_seq, seed in cs.MOE_FULL_WIDTH]
+    for arch, layers, prompt, max_seq, seed in runs:
+        if prompt + STEPS + 1 > max_seq:
+            raise ValueError(f"{arch}: {max_seq} cache rows do not hold "
+                             f"{prompt} + {STEPS + 1}")
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = to_compute_dtype(M.init_params(gen, cfg, "cuda"),
+                                  M.compute_dtype(cfg))
+        torch.cuda.empty_cache()
+        ms = step_times(torch, M, params, cfg, prompt, max_seq, gen)
+        cs.log(f"[time_decode] {arch} ({cfg.num_layers} layers) prompt "
+               f"{prompt}: median {statistics.median(ms)} ms per decoded "
+               f"token over {len(ms)} steps (min {min(ms)}, max {max(ms)})")
+        del params
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, t, d, f, e, spec, _ in cs.GMM_FULL_WIDTH:
+        if "decode" not in label:
+            continue
+        _, sizes, x, w = cs.gmm_inputs(torch, gen, t, d, f, e, spec,
+                                       torch.bfloat16)
+        for _ in range(3):
+            ops.gmm(x, w, sizes)
+        us = []
+        for _ in range(ENQUEUE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ops.gmm(x, w, sizes)
+            us.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        cs.log(f"[time_decode] gmm {label} T={t} D={d} F={f} E={e}: host "
+               f"enqueue median {statistics.median(us)} us over {len(us)} "
+               f"calls (min {min(us)}, max {max(us)})")
+        del x, w
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -117,7 +117,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention_fwd.restype = i
     lib.repro_ssd_fwd.argtypes = [
         p, p, p, p, p, p,           # x, dt, A, B, C, D
-        p, p, p,                    # y, final state, C.B^T scratch
+        p, p,                       # y, final state
+        p, p, p,                    # scratch: C.B^T transposed, chunk states, decays
         i,                          # x/y dtype: 0 float32, 1 bfloat16
         i, i, i, i, i, i,           # Bsz, S, H, P, N, chunk
         p]                          # cudaStream_t
@@ -133,8 +134,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_decode_attention_fwd.restype = i
     lib.repro_gmm_fwd.argtypes = [
         p, p, p, p,                 # x, w, group sizes (int32), out
+        p,                          # split partials [splits, T, F] fp32 (or null)
         i,                          # dtype: 0 float32, 1 bfloat16
         i, i, i, i,                 # T, D, F, E
+        i,                          # splits of D (bf16, with partials)
         p]                          # cudaStream_t
     lib.repro_gmm_fwd.restype = i
     lib.repro_cuda_error_string.argtypes = [i]

@@ -534,9 +534,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
                               static_cast<uint64_t>(B)};
   const uint64_t kv_dims[4] = {H, static_cast<uint64_t>(K), static_cast<uint64_t>(Sk),
                                static_cast<uint64_t>(B)};
-  cudaError_t err = hp::encode_bf16_4d(&tq, q, q_dims, q_box, C::RB);
-  if (err == cudaSuccess) err = hp::encode_bf16_4d(&tk, k, kv_dims, kv_box, C::RB);
-  if (err == cudaSuccess) err = hp::encode_bf16_4d(&tv, v, kv_dims, kv_box, C::RB);
+  cudaError_t err = hp::encode_bf16<4>(&tq, q, q_dims, q_box, C::RB);
+  if (err == cudaSuccess) err = hp::encode_bf16<4>(&tk, k, kv_dims, kv_box, C::RB);
+  if (err == cudaSuccess) err = hp::encode_bf16<4>(&tv, v, kv_dims, kv_box, C::RB);
   if (err != cudaSuccess) return err;
   auto kernel = flash_wgmma_kernel<H>;
   err = repro::allow_smem(kernel, C::bytes);

@@ -8,6 +8,12 @@ two by the device of the tensors.
 The kernel takes the sorted rows as they are and the group sizes on the
 device, so nothing here pads, copies the weights or reads a size back to
 the host: a call costs the MoE layer no host sync.
+
+The source holds three kernels: bfloat16 runs the Hopper kernel (wgmma on
+TMA-loaded tiles), with D split over several blocks (``splits_for``) when
+there are at most ``SPLIT_MAX_ROWS`` rows, as at decode; float32 runs the
+CUDA-core kernel. ``kernel_for`` names the one a call takes and
+``kernel_launches`` counts each.
 """
 from __future__ import annotations
 
@@ -18,17 +24,48 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the bf16 kernel splits D over blocks up to this many rows (decode)
+SPLIT_MAX_ROWS = 64
+_BN, _BK = 256, 64          # the bf16 kernel's column tile and depth step
+_SPLIT_BLOCKS = 264         # blocks a split aims at: two waves on an H100
+_SPLIT_MIN_DEPTH = 4        # depth steps of 64 a split keeps at least
 
-#: launches of the CUDA kernel since the last reset (set to 0 to reset)
+#: launches of the CUDA kernels since the last reset (set to 0 to reset)
 launches = 0
+#: the same launches by kernel (see ``kernel_for``; reset by assigning zeros)
+kernel_launches = {"wgmma": 0, "wgmma_splitk": 0, "fp32": 0}
+
+
+def kernel_for(dtype: torch.dtype, t: int) -> str:
+    """Which kernel of ``csrc/gmm.cu`` a call of ``t`` rows in ``dtype``
+    launches: "wgmma" (bfloat16), "wgmma_splitk" (bfloat16 at up to
+    ``SPLIT_MAX_ROWS`` rows) or "fp32"."""
+    if dtype == torch.bfloat16:
+        return "wgmma_splitk" if t <= SPLIT_MAX_ROWS else "wgmma"
+    if dtype == torch.float32:
+        return "fp32"
+    raise ValueError(f"no gmm kernel for {dtype}")
+
+
+def splits_for(t: int, d: int, f: int) -> int:
+    """How many blocks share each tile's depth D on the split path: enough
+    that the at most t live tiles x ceil(F / 256) column tiles give about
+    two waves of blocks (one block fits an SM), each keeping at least 4
+    steps of 64 (and every split a step). 1 past ``SPLIT_MAX_ROWS`` rows."""
+    if t > SPLIT_MAX_ROWS:
+        return 1
+    n_k = -(-d // _BK)
+    tiles = max(t, 1) * -(-f // _BN)
+    want = max(1, min(-(-_SPLIT_BLOCKS // tiles), n_k // _SPLIT_MIN_DEPTH))
+    per = -(-n_k // want)
+    return -(-n_k // per)
 
 
 def gmm(x: torch.Tensor, w: torch.Tensor,
         group_sizes: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors: x [T, D] sorted by group,
-    w [E, D, F], group_sizes [E] int (summing to T; rows past the sum are
-    not written). Returns [T, F] in x's dtype. Raises on anything the kernel
-    does not take."""
+    w [E, D, F], group_sizes [E] int (summing to T). Returns [T, F] in x's
+    dtype. Raises on anything the kernel does not take."""
     global launches
     if x.ndim != 2 or w.ndim != 3 or group_sizes.ndim != 1:
         raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
@@ -39,10 +76,6 @@ def gmm(x: torch.Tensor, w: torch.Tensor,
     if w.shape[1] != d or group_sizes.shape[0] != e:
         raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"group_sizes {tuple(group_sizes.shape)} do not match")
-    tensors = (x, w, group_sizes)
-    if not all(a.is_cuda and a.device == x.device for a in tensors):
-        raise ValueError("gmm kernel needs x, w and group_sizes as CUDA "
-                         "tensors on one device")
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise ValueError(f"dtypes x {x.dtype}, w {w.dtype}: need one of "
                          f"{sorted(map(str, _DTYPES))} for both")
@@ -55,6 +88,13 @@ def gmm(x: torch.Tensor, w: torch.Tensor,
     if not w.is_contiguous() or w.data_ptr() % 16:
         raise ValueError("w must be contiguous and 16-byte aligned (the "
                          "kernel does not copy the weights)")
+    kernel = kernel_for(x.dtype, t)
+    if not all(a.is_cuda and a.device == x.device
+               for a in (x, w, group_sizes)):
+        raise ValueError("gmm kernel needs x, w and group_sizes as CUDA "
+                         "tensors on one device")
+    split = kernel == "wgmma_splitk"
+    splits = splits_for(t, d, f) if split else 1
     x = x.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()
@@ -62,14 +102,19 @@ def gmm(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((t, f), dtype=x.dtype, device=x.device)
     if t == 0:
         return out
+    partial = (torch.empty((splits, t, f), dtype=torch.float32,
+                           device=x.device) if split else None)
     lib = build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_gmm_fwd(x.data_ptr(), w.data_ptr(), sizes.data_ptr(),
-                                out.data_ptr(), _DTYPES[x.dtype], t, d, f, e,
-                                stream)
+                                out.data_ptr(),
+                                partial.data_ptr() if partial is not None
+                                else None,
+                                _DTYPES[x.dtype], t, d, f, e, splits, stream)
     build.check(lib, err, "gmm launch")
     launches += 1
+    kernel_launches[kernel] += 1
     return out
 
 

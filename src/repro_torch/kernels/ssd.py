@@ -5,6 +5,10 @@ source says how it is laid out and what bounds it. Its plain PyTorch version
 is ``ref.ssd_chunked`` (``ref.ssd`` is the sequential definition);
 ``ops.ssd`` pads the sequence with dt = 0 and picks between them by the
 device of the tensors.
+
+A call launches the source's four kernels in order (C.B^T per chunk, the
+chunks' local states, the pass over the chunks, the output); ``launches``
+counts calls and ``kernel_launches`` each kernel.
 """
 from __future__ import annotations
 
@@ -14,8 +18,10 @@ from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches of the CUDA kernel since the last reset (set to 0 to reset)
+#: calls that launched the CUDA kernels since the last reset (set to 0 to reset)
 launches = 0
+#: launches of each of the four kernels (reset by assigning zeros)
+kernel_launches = {"cb": 0, "state": 0, "pass": 0, "out": 0}
 
 
 def ssd(
@@ -28,16 +34,13 @@ def ssd(
     *,
     chunk: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on CUDA tensors. S must be a multiple of
+    """Launch the CUDA kernels on CUDA tensors. S must be a multiple of
     ``chunk``. Returns (y [B,S,H,P] in x's dtype, final state [B,H,N,P]
     float32)."""
     global launches
     b, s, h, p = x.shape
     n = B.shape[-1]
     tensors = dict(x=x, dt=dt, A=A, B=B, C=C, D=D)
-    if not all(t.is_cuda and t.device == x.device for t in tensors.values()):
-        raise ValueError("ssd kernel needs all inputs as CUDA tensors on one "
-                         "device")
     if x.dtype not in _DTYPES:
         raise ValueError(f"x dtype {x.dtype} not in {sorted(map(str, _DTYPES))}")
     for name in ("dt", "A", "B", "C", "D"):
@@ -50,22 +53,65 @@ def ssd(
                              f"expected {shape}")
     if chunk < 1 or s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
-    x, dt, A, B, C, D = (t.contiguous() for t in (x, dt, A, B, C, D))
+    if not all(t.is_cuda and t.device == x.device for t in tensors.values()):
+        raise ValueError("ssd kernel needs all inputs as CUDA tensors on one "
+                         "device")
+    nc = s // chunk
+    # the kernels read 16-byte rows: a chunk a multiple of 8 positions, N of
+    # 4 and P of 8. Other shapes are padded exactly: positions appended to
+    # each chunk with dt = 0 change no state and their outputs are dropped,
+    # and zero columns of B, C and x add nothing.
+    lp, np_, pp = -(-chunk // 8) * 8, -(-n // 4) * 4, -(-p // 8) * 8
+    padded = (lp, np_, pp) != (chunk, n, p)
+    if padded:
+        x = _pad_chunks(x, nc, chunk, lp, (h, pp))
+        dt = _pad_chunks(dt, nc, chunk, lp, (h,))
+        B = _pad_chunks(B, nc, chunk, lp, (np_,))
+        C = _pad_chunks(C, nc, chunk, lp, (np_,))
+    x, dt, A, B, C, D = (_aligned(t) for t in (x, dt, A, B, C, D))
     y = torch.empty_like(x)
-    fin = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
-    # C.B^T of every chunk, made once for all heads by the first kernel
-    cb = torch.empty((b, s // chunk, chunk, chunk), dtype=torch.float32,
-                     device=x.device)
+    fin = torch.empty((b, h, np_, pp), dtype=torch.float32, device=x.device)
+    # scratch: C.B^T of every chunk, transposed (made once for all heads);
+    # each chunk's local state (then the state entering it) and total decay
+    f32 = dict(dtype=torch.float32, device=x.device)
+    cbt = torch.empty((b, nc, lp, lp), **f32)
+    states = torch.empty((b, nc, h, np_, pp), **f32)
+    decays = torch.empty((b, nc, h), **f32)
     lib = build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_ssd_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(), y.data_ptr(), fin.data_ptr(),
-            cb.data_ptr(), _DTYPES[x.dtype], b, s, h, p, n, chunk, stream)
+            cbt.data_ptr(), states.data_ptr(),
+            decays.data_ptr(), _DTYPES[x.dtype], b, nc * lp, h, pp, np_, lp,
+            stream)
     build.check(lib, err, "ssd launch")
     launches += 1
+    for k in kernel_launches:
+        kernel_launches[k] += 1
+    if padded:
+        y = y.reshape(b, nc, lp, h, pp)[:, :, :chunk, :, :p].reshape(b, s, h, p)
+        fin = fin[:, :, :n, :p].contiguous()
     return y, fin
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, from a 16-byte aligned base."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _pad_chunks(t: torch.Tensor, nc: int, chunk: int, lp: int,
+                rest: tuple[int, ...]) -> torch.Tensor:
+    """[B, nc * chunk, *r] -> [B, nc * lp, *rest]: each chunk's positions,
+    then zeros to lp; each trailing dim zero-padded to ``rest``."""
+    b = t.shape[0]
+    out = t.new_zeros((b, nc, lp) + rest)
+    src = t.reshape((b, nc, chunk) + tuple(t.shape[2:]))
+    out[(slice(None), slice(None), slice(0, chunk))
+        + tuple(slice(0, r) for r in t.shape[2:])] = src
+    return out.reshape((b, nc * lp) + rest)
 
 
 def flops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> int:

@@ -51,6 +51,7 @@ SSD_CASES = [
     (1, 100, 2, 16, 32, 32),
     (2, 64, 4, 32, 64, 64),
     (1, 512, 4, 64, 128, 256),              # mamba2-130m's head and state
+    (2, 60, 3, 6, 5, 20),                   # padded by the binding: chunk, N, P
 ]
 
 DECODE_CASES = [
@@ -150,6 +151,36 @@ def test_ssd_kernel_matches_plain(cuda, case, dtype):
                                                                    rtol=3e-4)
     np.testing.assert_allclose(_np(y), _np(y_seq), **tol)
     np.testing.assert_allclose(_np(fin), _np(fin_seq), atol=3e-4, rtol=3e-4)
+
+
+# (chunk, p, n) at 16 chunks of a batch of 2: the pass over the chunks runs
+# at depth, and dt is small enough that the state carries across them
+SSD_DEEP = [(ch, p, n) for ch in (32, 64, 128, 256) for p, n in ((16, 32), (64, 128))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk, p, n", SSD_DEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_at_depth_matches_chunked(cuda, chunk, p, n, dtype):
+    b, h, s = 2, 3, 16 * chunk
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((b, s, h, p), np.float32))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((b, s, h), np.float32)) - 4.0)
+    A = -torch.exp(0.5 * torch.from_numpy(rng.standard_normal(h).astype(np.float32)))
+    B, C = (torch.from_numpy(rng.standard_normal((b, s, n), np.float32))
+            for _ in range(2))
+    D = torch.full((h,), 0.5)
+    args = [x.to(cuda, dtype)] + [t.to(cuda) for t in (dt, A, B, C, D)]
+    before = dict(ssd_mod.kernel_launches)
+    y, fin = ssd_mod.ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_mod.kernel_launches == {k: v + 1 for k, v in before.items()}
+    y_ref, fin_ref = ref.ssd_chunked(*args, chunk=chunk)
+    tol = TOL[torch.bfloat16] if dtype == torch.bfloat16 else dict(atol=3e-4,
+                                                                   rtol=3e-4)
+    np.testing.assert_allclose(_np(y), _np(y_ref), **tol)
+    np.testing.assert_allclose(_np(fin), _np(fin_ref), atol=3e-4, rtol=3e-4)
 
 
 @pytest.mark.cuda
@@ -359,9 +390,12 @@ def _gmm_inputs(rng, t, d, f, e, dtype, device, sizes=None):
 
 def _check_gmm(x, w, sizes):
     before = gmm_mod.launches
+    by_kernel = dict(gmm_mod.kernel_launches)
+    by_kernel[gmm_mod.kernel_for(x.dtype, x.shape[0])] += 1
     got = ops.gmm(x, w, sizes)
     torch.cuda.synchronize()
     assert gmm_mod.launches == before + 1
+    assert gmm_mod.kernel_launches == by_kernel
     want = ref.gmm(x.float(), w.float(), sizes)
     assert got.dtype == x.dtype and got.shape == want.shape
     np.testing.assert_allclose(_np(got), _np(want), **TOL[x.dtype])
@@ -386,6 +420,41 @@ def test_gmm_kernel_empty_groups_and_tile_edges(cuda, sizes, dtype):
     row into a tile or fill one exactly."""
     rng = np.random.default_rng(23)
     _check_gmm(*_gmm_inputs(rng, sum(sizes), 72, 80, 4, dtype, cuda, sizes))
+
+
+# the wgmma kernel's edges: T not a multiple of the 128-row tile; D not a
+# multiple of 64 (TMA zero-fills the depth tail); F not a multiple of 256; an
+# expert of 300 rows (three tiles) starting at row 3; empty experts; runs
+# starting at odd rows
+GMM_TILE_EDGES = [
+    # (d, f, sizes)
+    (72, 264, [1, 299]),
+    (200, 80, [0, 3, 300, 0, 30]),
+    (136, 520, [65, 0, 127, 1, 64, 0, 0]),
+    (4088, 8, [129, 0, 256]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GMM_TILE_EDGES)
+def test_gmm_wgmma_kernel_tile_edges(cuda, case):
+    d, f, sizes = case
+    _check_gmm(*_gmm_inputs(np.random.default_rng(29), sum(sizes), d, f,
+                            len(sizes), torch.bfloat16, cuda, sizes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 2, 8, gmm_mod.SPLIT_MAX_ROWS,
+                               gmm_mod.SPLIT_MAX_ROWS + 1])
+def test_gmm_split_path_at_decode_sizes(cuda, t):
+    """Up to 64 rows D is split over several blocks (here 4096 over 4-16
+    steps of 64 a split) and the partial sums added; one row more takes the
+    wgmma kernel without a split."""
+    d, f, e = 4096, 520, 16
+    if t <= gmm_mod.SPLIT_MAX_ROWS:
+        assert gmm_mod.splits_for(t, d, f) > 1
+    _check_gmm(*_gmm_inputs(np.random.default_rng(31), t, d, f, e,
+                            torch.bfloat16, cuda))
 
 
 @pytest.mark.cuda

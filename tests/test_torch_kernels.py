@@ -16,6 +16,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gmm as gmm_mod
 from repro_torch.kernels import ssd as ssd_mod
 
 FLASH_CASES = [
@@ -260,6 +261,102 @@ def test_kernel_bindings_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ssd_mod.ssd(*tx, chunk=8)
     assert (fa.launches, ssd_mod.launches) == before
+
+
+@pytest.mark.parametrize("t, kernel", [(1, "wgmma_splitk"), (2, "wgmma_splitk"),
+                                       (64, "wgmma_splitk"), (65, "wgmma"),
+                                       (8192, "wgmma")])
+def test_gmm_kernel_for_names_the_kernel_of_each_dtype_and_size(t, kernel):
+    assert gmm_mod.kernel_for(torch.bfloat16, t) == kernel
+    assert gmm_mod.kernel_for(torch.float32, t) == "fp32"
+
+
+def test_gmm_kernel_for_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="no gmm kernel"):
+        gmm_mod.kernel_for(torch.float16, 8)
+
+
+@pytest.mark.parametrize("t, d, f", [(1, 64, 8), (2, 4096, 6400),
+                                     (2, 6400, 4096), (8, 4096, 1536),
+                                     (8, 1536, 4096), (64, 4096, 1536),
+                                     (64, 8, 8), (3, 72, 520), (1, 8192, 256)])
+def test_gmm_splits_of_d_leave_no_split_empty(t, d, f):
+    """The CUDA side takes ceil(steps / splits) steps a split and refuses a
+    count that leaves the last split empty; a split keeps 4 steps of 64."""
+    splits = gmm_mod.splits_for(t, d, f)
+    steps = -(-d // 64)
+    per = -(-steps // splits)
+    assert splits >= 1 and -(-steps // per) == splits
+    assert splits == 1 or per >= 4
+
+
+def test_gmm_splits_of_d_only_at_decode_sizes():
+    # phi3.5-moe's wi at 2 rows: 2 x 25 column tiles of 64 steps; 6 splits
+    # of 11 steps give 300 blocks, two waves or more on 132 SMs
+    assert gmm_mod.splits_for(2, 4096, 6400) == 6
+    assert gmm_mod.splits_for(gmm_mod.SPLIT_MAX_ROWS + 1, 4096, 6400) == 1
+
+
+def test_gmm_binding_refuses_what_it_does_not_take_before_the_device():
+    x = torch.zeros((16, 8), dtype=torch.bfloat16)
+    w = torch.zeros((2, 8, 16), dtype=torch.bfloat16)
+    sizes = torch.tensor([10, 6], dtype=torch.int32)
+    before = (gmm_mod.launches, dict(gmm_mod.kernel_launches))
+    refused = [
+        ("need", (x[None], w, sizes)),
+        ("match", (x, w[:, :4], sizes)),
+        ("match", (x, w, sizes[:1])),
+        ("dtypes", (x.float(), w, sizes)),
+        ("dtypes", (x.half(), w.half(), sizes)),
+        ("multiples of 8", (x[:, :6], w[:, :6], sizes)),
+        ("contiguous", (x, w.transpose(1, 2).contiguous().transpose(1, 2),
+                        sizes)),
+        ("int32", (x, w, sizes.float())),
+        ("CUDA", (x, w, sizes)),
+        ("CUDA", (torch.zeros((80, 8), dtype=torch.bfloat16), w,
+                  torch.tensor([40, 40]))),
+    ]
+    for match, args in refused:
+        with pytest.raises(ValueError, match=match):
+            gmm_mod.gmm(*args)
+    assert (gmm_mod.launches, gmm_mod.kernel_launches) == before
+
+
+def test_ssd_binding_refuses_what_it_does_not_take_before_the_device():
+    x, dt, A, B, C, D = (torch.from_numpy(a) for a in
+                         _ssd_inputs(np.random.default_rng(1), 1, 16, 2, 8, 16))
+    before = (ssd_mod.launches, dict(ssd_mod.kernel_launches))
+    refused = [
+        ("dtype", (x.half(), dt, A, B, C, D), 8),
+        ("float32", (x, dt.double(), A, B, C, D), 8),
+        ("shape", (x, dt, A, B[:, :8], C, D), 8),
+        ("multiple of chunk", (x, dt, A, B, C, D), 5),
+        ("CUDA", (x, dt, A, B, C, D), 8),
+    ]
+    for match, args, chunk in refused:
+        with pytest.raises(ValueError, match=match):
+            ssd_mod.ssd(*args, chunk=chunk)
+    assert (ssd_mod.launches, ssd_mod.kernel_launches) == before
+
+
+def test_ssd_binding_pads_chunks_exactly():
+    """The CUDA binding pads a chunk to a multiple of 8 positions (dt = 0 at
+    the end of each chunk), N to 4 and P to 8 (zero columns): the chunked
+    scan on the padded inputs gives the same outputs and final state."""
+    b, s, h, p, n, ch = 2, 30, 3, 6, 5, 10
+    x, dt, A, B, C, D = (torch.from_numpy(a) for a in
+                         _ssd_inputs(np.random.default_rng(5), b, s, h, p, n))
+    nc, lp, np_, pp = s // ch, 16, 8, 8
+    pad = ssd_mod._pad_chunks
+    y, fin = ref.ssd_chunked(pad(x, nc, ch, lp, (h, pp)),
+                             pad(dt, nc, ch, lp, (h,)), A,
+                             pad(B, nc, ch, lp, (np_,)),
+                             pad(C, nc, ch, lp, (np_,)), D, chunk=lp)
+    y = y.reshape(b, nc, lp, h, pp)[:, :, :ch, :, :p].reshape(b, s, h, p)
+    want_y, want_fin = ref.ssd_chunked(x, dt, A, B, C, D, chunk=ch)
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), atol=3e-5, rtol=3e-5)
+    np.testing.assert_allclose(fin[:, :, :n, :p].numpy(), want_fin.numpy(),
+                               atol=3e-5, rtol=3e-5)
 
 
 def test_build_failure_raises(tmp_path, monkeypatch):
