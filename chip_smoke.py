@@ -38,15 +38,19 @@ Phases, each of which raises (exit code != 0) on any failure:
    ``torch.profiler``, device time by kernel;
 7. decode: the decode-attention kernel against its plain version at the
    full-width GQA shapes (gemma2-2b, gemma-2b, qwen1.5-4b), in float32 and
-   bfloat16, timed with a cold L2 beside SDPA and the bound, its bfloat16
+   bfloat16 (each call on the kernel ``kernel_for`` names: "mma" for
+   bf16), timed with a cold L2 beside SDPA and the bound, its bfloat16
    gate shown rejecting a dropped softcap, a dropped window and pos off by
    one; the four architectures at smoke width, prefill and decode steps on
    the card against the CPU; gemma2-2b at its published config, all 26
    layers, prefill of 4608 tokens into a 5120-row cache and 32 greedy
    decode steps (every decode-attention call of the first and last step
    held against float32, the decoded logits against forward on the
-   extended tokens, the launch counter against steps x layers), and
-   mamba2-130m whole, 1024 tokens and 32 steps; ms per decoded token;
+   extended tokens, the launch counters against steps x layers, all on
+   "mma"), and mamba2-130m whole, 1024 tokens and 32 steps; ms per decoded
+   token; a profiled step of each must run ``decode_mma_kernel`` once per
+   attention layer by the profiler's kernel names, and neither fp32
+   kernel;
 8. MoE: the grouped-matmul kernel against its plain version (the
    reference's cases, empty groups, one group of every row, groups ending
    mid-tile, and phi3.5-moe's and qwen3-moe's full-width prefill and decode
@@ -55,14 +59,16 @@ Phases, each of which raises (exit code != 0) on any failure:
    rejecting a row moved to the next expert and a dropped partial row tile
    (each margin printed), timed with a cold L2 beside ``torch._grouped_mm``
    and the bound; the decode kernel at qwen3-moe's
-   group of 16 with phase 7's gates; both MoE architectures at smoke width
+   group of 16 and phi3.5-moe's shape (``DECODE_MOE_CASES``) with phase 7's
+   gates; both MoE architectures at smoke width
    under both moe_impl values, card against CPU; phi3.5-moe at its published
    width cut to 4 layers (1024-token prefill, 32 greedy steps) and qwen3-moe
    cut to 2 (1024 + 8), every grouped-matmul call of the prefill and of the
    first and last step held against float32, the routing flips between bf16
    and float32 counted, the logits held on the tokens routed alike, the
    launch counters against (prefill + steps) x layers x 3, the prefill's on
-   the wgmma kernel and the steps' on the split path.
+   the wgmma kernel and the steps' on the split path, and a profiled step's
+   decode kernels by name as in phase 7.
 
 The ``kernels`` line's launches add up each kernel's counted runs: flash
 over the serving run and the MoE prefills, SSD over the serving run,
@@ -715,10 +721,11 @@ def profile(torch, cases) -> None:
                    lambda: h.fn(h.params, tokens))
 
 
-def profile_fn(torch, label: str, fn) -> None:
+def profile_fn(torch, label: str, fn) -> list:
     """One synchronised call of ``fn`` (after one warm-up) under
     torch.profiler: device busy time against wall time, kernels by self
-    time."""
+    time. Returns the kernels' rows, (self us, count, name), longest
+    first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -745,6 +752,32 @@ def profile_fn(torch, label: str, fn) -> None:
     for us, count, key in rows[:8]:
         log(f"[profile]   {us:10.1f} us {100 * us / busy:5.1f}% "
             f"x{count:<4d} {key[:90]}")
+    return rows
+
+
+def check_decode_launches(rows, by_kernel: dict, layers: int, steps: int,
+                          label: str) -> None:
+    """A profiled ``decode_step`` (``rows`` from ``profile_fn``) must run
+    the bf16 decode kernel once per attention layer, by the kernel's name,
+    and neither fp32 kernel; the decode binding's ``kernel_launches`` over
+    the steps before (``by_kernel``) must show every call on "mma"."""
+    by_name = {}
+    for _, count, key in rows:
+        for name in ("decode_mma_kernel", "decode_split_kernel",
+                     "decode_combine_kernel"):
+            if name in key:
+                by_name[name] = by_name.get(name, 0) + count
+    want = {"decode_mma_kernel": layers} if layers else {}
+    log(f"[decode] {label}: decode kernels by name in one profiled step "
+        f"{by_name}, expected {want}; kernel_launches over the {steps} "
+        f"steps {by_kernel}")
+    if by_name != want:
+        raise AssertionError(f"{label}: decode kernels {by_name}, expected "
+                             f"{want} (one mma launch per attention layer)")
+    if by_kernel != {"mma": steps * layers, "fp32": 0}:
+        raise AssertionError(f"{label}: decode kernel_launches "
+                             f"{by_kernel}, expected "
+                             f"{steps * layers} on mma")
 
 
 # ---------------------------------------------------------------------------
@@ -762,6 +795,26 @@ DECODE_KERNEL_CASES = [
 ]
 
 
+#: the MoE models' decode shapes at pos 1040 of a 1056-row cache, timed in
+#: phase 8 with phase 7's gates
+DECODE_MOE_CASES = [
+    ("qwen3-moe (group 16)", 1056, 64, 4, 128, None, None, [1040]),
+    ("phi3.5-moe", 1056, 32, 8, 128, None, None, [1040]),
+]
+
+
+def decode_inputs(torch, gen, b: int, s: int, n: int, k: int, h: int,
+                  dtype):
+    """q [b,n,h] and a cache k, v [b,s,k,h] from ``gen``; bf16 q and k at
+    deviation ``BF16_QK_STD``, so a softcap of 50 bends the scores."""
+    amp = BF16_QK_STD if dtype == torch.bfloat16 else 1.0
+    q = (amp * torch.randn((b, n, h), generator=gen, device="cuda")).to(dtype)
+    kc = (amp * torch.randn((b, s, k, h), generator=gen,
+                            device="cuda")).to(dtype)
+    vc = torch.randn((b, s, k, h), generator=gen, device="cuda").to(dtype)
+    return q, kc, vc
+
+
 def check_decode_kernel(torch, gen, cases=DECODE_KERNEL_CASES):
     """The decode kernel against its plain version at the full-width GQA
     shapes, with times, bounds and SDPA beside it. The bf16 gate must reject
@@ -777,20 +830,19 @@ def check_decode_kernel(torch, gen, cases=DECODE_KERNEL_CASES):
         pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
         for dname, dtype in (("float32", torch.float32),
                              ("bfloat16", torch.bfloat16)):
-            amp = BF16_QK_STD if dtype == torch.bfloat16 else 1.0
-            q = (amp * torch.randn((b, n, h), generator=gen,
-                                   device="cuda")).to(dtype)
-            kc = (amp * torch.randn((b, s, k, h), generator=gen,
-                                    device="cuda")).to(dtype)
-            vc = torch.randn((b, s, k, h), generator=gen,
-                             device="cuda").to(dtype)
+            q, kc, vc = decode_inputs(torch, gen, b, s, n, k, h, dtype)
             args = dict(window=win, softcap=cap)
             run = lambda kk=kc, p=pos, **kw: ops.decode_attention(
                 q, kk, vc, p, **{**args, **kw})
             plain = lambda: ref.decode_attention(q, kc, vc, pos, **args)
             name = f"decode {label} {dname}"
+            kernel = dec.kernel_for(dtype, dtype)
+            before = dec.kernel_launches[kernel]
             got = run()
             torch.cuda.synchronize()
+            if dec.kernel_launches[kernel] != before + 1:
+                raise AssertionError(f"{name}: not on the {kernel} kernel "
+                                     f"({dec.kernel_launches})")
             rel = None
             if dname == "float32":
                 err = compare(name, got, plain(), TOL[dname])
@@ -844,8 +896,9 @@ def check_decode_kernel(torch, gen, cases=DECODE_KERNEL_CASES):
                 lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, enable_gqa=True), reps=20, flush=flush)
                 del qt, kt, vt
-            log(f"[decode] decode_attention {label} {dname} B={b} S={s} N={n} "
-                f"K={k} H={h} window={win} softcap={cap} pos={pos_list}: "
+            log(f"[decode] decode_attention {label} {dname} ({kernel}, "
+                f"{dec.num_splits(b, k, s, win, n // k, h, kernel)} splits) B={b} S={s} "
+                f"N={n} K={k} H={h} window={win} softcap={cap} pos={pos_list}: "
                 f"max_abs_err={err} rel_l2_err={rel} ms={ms} "
                 f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}, "
                 f"{nbytes} bytes, {flops} flops) library_ms={lib_ms}")
@@ -964,6 +1017,7 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
         del logits
         fed, outs, step_ms = [], [], []
         dec.launches = 0
+        dec.kernel_launches = dict.fromkeys(dec.kernel_launches, 0)
         for i in range(steps):
             tap = attn_layers and i in (0, steps - 1)
             pos = torch.full((1,), prompt + i, dtype=torch.int32,
@@ -1004,6 +1058,7 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
                 if worst > BF16_REL_L2:
                     raise AssertionError(f"{arch}: a decode call off by {worst}")
         launches = dec.launches
+        by_kernel = dict(dec.kernel_launches)
         if launches != steps * attn_layers:
             raise AssertionError(f"{arch}: {launches} decode_attention "
                                  f"launches, expected {steps} steps x "
@@ -1037,7 +1092,9 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
         f"{max(step_ms)}); decode_attention launches {launches} = {steps} x "
         f"{attn_layers}")
     step = lambda: M.decode_step(params, cfg, nxt, cache, pos)
-    profile_fn(torch, f"{arch} decode_step at pos {prompt + steps - 1}", step)
+    rows = profile_fn(torch, f"{arch} decode_step at pos {prompt + steps - 1}",
+                      step)
+    check_decode_launches(rows, by_kernel, attn_layers, steps, arch)
     del params, cache, dec_logits, fwd, want
     torch.cuda.empty_cache()
     return dict(launches=launches, ms_per_token=med)
@@ -1382,6 +1439,7 @@ def moe_full_width(torch, arch: str, layers: int, prompt: int, steps: int,
         # again) and the steps
         reset_flash_counters(fa)
         dec.launches = gmm_mod.launches = 0
+        dec.kernel_launches = dict.fromkeys(dec.kernel_launches, 0)
         gmm_mod.kernel_launches = dict.fromkeys(gmm_mod.kernel_launches, 0)
         ops.gmm, moe.route = tapped_gmm, tapped_route
         try:
@@ -1419,6 +1477,7 @@ def moe_full_width(torch, arch: str, layers: int, prompt: int, steps: int,
             nxt = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
         launches = {"flash_attention": fa.launches,
                     "decode_attention": dec.launches, "gmm": gmm_mod.launches}
+        dec_by_kernel = dict(dec.kernel_launches)
         flash_by_kernel(fa, f"{arch} prefill and steps")
         # the prefill's rows (prompt x k) take the wgmma kernel, a step's k
         # rows the split path
@@ -1479,7 +1538,9 @@ def moe_full_width(torch, arch: str, layers: int, prompt: int, steps: int,
         f"median {med} ms per decoded token over {len(step_ms)} untapped "
         f"steps (min {min(step_ms)}, max {max(step_ms)}); launches {launches}")
     step = lambda: M.decode_step(params, cfg, nxt, cache, pos)
-    profile_fn(torch, f"{arch} decode_step at pos {prompt + steps - 1}", step)
+    rows = profile_fn(torch, f"{arch} decode_step at pos {prompt + steps - 1}",
+                      step)
+    check_decode_launches(rows, dec_by_kernel, layers, steps, arch)
     del params, cache, got, want, plain
     torch.cuda.empty_cache()
     return launches
@@ -1496,8 +1557,7 @@ MOE_FULL_WIDTH = [
 
 def moe_phase(torch, gen):
     headline = check_gmm_kernel(torch, gen)
-    check_decode_kernel(torch, gen, [
-        ("qwen3-moe (group 16)", 1056, 64, 4, 128, None, None, [1040])])
+    check_decode_kernel(torch, gen, DECODE_MOE_CASES)
     check_moe_models(torch)
     runs = [moe_full_width(torch, arch, layers=layers, prompt=prompt,
                            steps=steps, max_seq=max_seq, seed=seed)
@@ -1536,7 +1596,8 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
-    ptxas_report(build.build_log(), ("gmm_", "ssd_", "flash_wgmma_kernel"))
+    ptxas_report(build.build_log(), ("gmm_", "ssd_", "flash_wgmma_kernel",
+                                     "decode_"))
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(0)

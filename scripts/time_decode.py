@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times the port's decode path end to end at ``chip_smoke.py``'s
 full-width decode and MoE runs, and the host's enqueue time of one
-grouped-matmul call at its decode shapes.
+grouped-matmul call at its decode shapes and of one decode-attention call
+at gemma2-2b's.
 
     python3 scripts/time_decode.py [--root CHECKOUT]
 
@@ -11,9 +12,10 @@ phases 7 and 8; bf16, random weights from the seed): ``prefill`` of the
 prompt, one untimed step, then ``STEPS`` greedy ``decode_step``s, each timed
 on the host's clock between two synchronisations, as ``chip_smoke.py`` times
 them; prints the median, min and max ms per decoded token. Then, at each
-decode case of ``GMM_FULL_WIDTH``, the median over ``ENQUEUE_REPS`` calls of
-the host time that ``ops.gmm`` takes to return, each call started on an idle
-card: what a call adds to a host-bound step. No output is checked here;
+decode case of ``GMM_FULL_WIDTH``, and at gemma2-2b's global layer of
+``DECODE_KERNEL_CASES`` (bf16), the median over ``ENQUEUE_REPS`` calls of the
+host time that ``ops.gmm`` or ``ops.decode_attention`` takes to return, each
+call started on an idle card: what a call adds to a host-bound step. No output is checked here;
 ``chip_smoke.py`` does that.
 
 ``repro_torch`` is imported from ``CHECKOUT/src`` (default: this checkout):
@@ -36,7 +38,7 @@ import chip_smoke as cs  # noqa: E402
 
 STEPS = 31           # timed decode steps, after one untimed (the caches
                      # hold 32 rows past the prompt)
-ENQUEUE_REPS = 200   # timed gmm calls a case
+ENQUEUE_REPS = 200   # timed gmm or decode-attention calls a case
 
 
 def step_times(torch, M, params, cfg, prompt: int, max_seq: int,
@@ -60,6 +62,20 @@ def step_times(torch, M, params, cfg, prompt: int, max_seq: int,
                 times.append((time.perf_counter() - t0) * 1e3)
             nxt = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
     return times
+
+
+def enqueue_us(torch, fn) -> list[float]:
+    """Host us of ``ENQUEUE_REPS`` calls of ``fn``, each on an idle card."""
+    for _ in range(3):
+        fn()
+    us = []
+    for _ in range(ENQUEUE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        us.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return us
 
 
 def main() -> int:
@@ -106,20 +122,23 @@ def main() -> int:
             continue
         _, sizes, x, w = cs.gmm_inputs(torch, gen, t, d, f, e, spec,
                                        torch.bfloat16)
-        for _ in range(3):
-            ops.gmm(x, w, sizes)
-        us = []
-        for _ in range(ENQUEUE_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ops.gmm(x, w, sizes)
-            us.append((time.perf_counter() - t0) * 1e6)
-        torch.cuda.synchronize()
+        us = enqueue_us(torch, lambda: ops.gmm(x, w, sizes))
         cs.log(f"[time_decode] gmm {label} T={t} D={d} F={f} E={e}: host "
                f"enqueue median {statistics.median(us)} us over {len(us)} "
                f"calls (min {min(us)}, max {max(us)})")
         del x, w
         torch.cuda.empty_cache()
+    label, s, n, k, h, win, cap, pos_list = next(
+        c for c in cs.DECODE_KERNEL_CASES if c[0] == "gemma2-2b global")
+    q, kc, vc = cs.decode_inputs(torch, gen, len(pos_list), s, n, k, h,
+                                 torch.bfloat16)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+    us = enqueue_us(torch, lambda: ops.decode_attention(
+        q, kc, vc, pos, window=win, softcap=cap))
+    cs.log(f"[time_decode] decode_attention {label} bf16 S={s} N={n} K={k} "
+           f"H={h} pos={pos_list}: host enqueue median "
+           f"{statistics.median(us)} us over {len(us)} calls (min {min(us)}, "
+           f"max {max(us)})")
     return 0
 
 

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Times the port's bfloat16 grouped-matmul and SSD kernels at
-``chip_smoke.py``'s full-width cases.
+"""Times the port's bfloat16 grouped-matmul, SSD and decode-attention
+kernels at ``chip_smoke.py``'s full-width cases.
 
     python3 scripts/time_kernels.py [--root CHECKOUT]
 
-The cases (``GMM_FULL_WIDTH``, ``SSD_FULL_WIDTH``), the inputs and the
+The cases (``GMM_FULL_WIDTH``, ``SSD_FULL_WIDTH``, ``DECODE_KERNEL_CASES``
+and ``DECODE_MOE_CASES``), the inputs and the
 timing (CUDA events, a cold L2 before each run, the host's launch path off
 the clock, median of ``KERNEL_REPS``) are this checkout's
-``chip_smoke.py``'s, so the numbers read like its phases 3 and 8. The inputs
+``chip_smoke.py``'s, so the numbers read like its phases 3, 7 and 8. The inputs
 come from one seeded generator, so every checkout is timed on the same
 data. ``repro_torch`` is imported from ``CHECKOUT/src`` (default: this
 checkout): two commits are compared on one card in one run by unpacking the
@@ -57,6 +58,19 @@ def main() -> int:
                         reps=cs.KERNEL_REPS, flush=flush)
         cs.log(f"[time_kernels] ssd {label} B={b} S={s} H={h} P={p} N={n} "
                f"chunk={ch}: ms={ms}")
+    for label, s, n, k, h, win, cap, pos_list in (cs.DECODE_KERNEL_CASES +
+                                                  cs.DECODE_MOE_CASES):
+        q, kc, vc = cs.decode_inputs(torch, gen, len(pos_list), s, n, k, h,
+                                     torch.bfloat16)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+        ms = cs.time_ms(lambda: ops.decode_attention(
+            q, kc, vc, pos, window=win, softcap=cap), reps=cs.KERNEL_REPS,
+            flush=flush)
+        cs.log(f"[time_kernels] decode {label} B={len(pos_list)} S={s} N={n} "
+               f"K={k} H={h} window={win} softcap={cap} pos={pos_list}: "
+               f"ms={ms}")
+        del q, kc, vc
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -124,7 +124,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p]                          # cudaStream_t
     lib.repro_ssd_fwd.restype = i
     lib.repro_decode_attention_fwd.argtypes = [
-        p, p, p, p, p,              # q, k cache, v cache, pos (int32), out
+        p, p, p, p, p,              # q (fp32), k cache, v cache, pos (int32), out
         p, p,                       # split partials: acc, (m, l)
         i, i,                       # q dtype, cache dtype: 0 float32, 1 bfloat16
         i, i, i, i, i,              # B, S, N, K, H
@@ -132,6 +132,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         f, i, f,                    # scale, window (<=0: none), softcap (<=0: none)
         p]                          # cudaStream_t
     lib.repro_decode_attention_fwd.restype = i
+    lib.repro_decode_attention_mma_fwd.argtypes = [
+        p, p, p, p, p,              # q, k cache, v cache, pos (int32), out (bf16)
+        p, p,                       # split partials (fp32), merge tickets (int32); null at 1 split
+        i, i, i, i, i,              # B, S, N, K, H
+        i,                          # splits
+        f, i, f,                    # scale, window (<=0: none), softcap (<=0: none)
+        p]                          # cudaStream_t
+    lib.repro_decode_attention_mma_fwd.restype = i
     lib.repro_gmm_fwd.argtypes = [
         p, p, p, p,                 # x, w, group sizes (int32), out
         p,                          # split partials [splits, T, F] fp32 (or null)

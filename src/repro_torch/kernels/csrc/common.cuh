@@ -1,9 +1,12 @@
 // Helpers shared by the kernels: conversions between the storage type of a
-// tensor (float or bfloat16) and the float the kernels compute in.
+// tensor (float or bfloat16) and the float the kernels compute in, the
+// dynamic shared memory opt-in, and cp.async copies from global to shared
+// memory.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace repro {
 
@@ -35,6 +38,32 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes when !in (the
+// src-size 0 form reads nothing; src must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// the same for a count known only at run time, up to 3 (more waits for 3)
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
 }
 
 }  // namespace repro

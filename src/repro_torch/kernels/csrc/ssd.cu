@@ -62,6 +62,9 @@
 
 namespace {
 
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 using repro::from_float;
 using repro::to_float;
 
@@ -92,20 +95,6 @@ struct Ring {
   static constexpr int STAGE = A + B + RAW;
   static constexpr int BYTES = 2 * STAGE * 4;
 };
-
-// 16 bytes from global to shared memory, or 16 zero bytes when !in
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Copies rows [r0, r0 + ROWS) x columns [c0, c0 + W) of a row-major matrix
 // (leading dimension ld elements of E) into dst [ROWS][stride] over THREADS

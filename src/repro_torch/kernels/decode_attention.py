@@ -1,17 +1,30 @@
 """Single-token decode attention: binding of ``csrc/decode_attention.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
-(``decode_attention``). The CUDA source says how it is laid out and what
-bounds it. Its plain PyTorch version is ``ref.decode_attention``;
-``ops.decode_attention`` picks between the two by the device of the tensors.
+(``decode_attention``). The CUDA source holds two kernels and says how each
+is laid out and what bounds it: "mma" (bf16 q over a bf16 cache, every call
+of the served decode path: tensor cores over a ``cp.async`` ring, the splits
+merged in the same launch) and "fp32" (float32 q over a float32 or bf16
+cache, parity runs only: CUDA-core FMAs, then a second kernel that merges
+the splits). ``kernel_for`` names the one a call takes and
+``kernel_launches`` counts each. The plain PyTorch version is
+``ref.decode_attention``; ``ops.decode_attention`` picks between the two by
+the device of the tensors.
 
 The binding never copies the cache: a per-layer slice ``cache["k"][g]`` of a
 contiguous stacked cache is itself contiguous and aligned, and anything else
 is refused rather than cloned (a clone would read and write the whole cache
-on every decoded token).
+on every decoded token). A bf16 call does no host work that depends on
+``pos`` and no memset: its merge counters live in a zeroed buffer that the
+binding keeps per device and that every call leaves at zero, so the call can
+be captured in a CUDA graph. The first call on a device, or with more
+sequences x KV heads than before, allocates them: make it before capturing.
+Calls on one device share the counters, so they must not run concurrently
+on two streams.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -22,31 +35,94 @@ from . import build
 DEFAULT_BLOCK_K = 256
 HEAD_DIMS = (16, 32, 64, 128, 256)
 GROUPS = (1, 2, 4, 8, 16)
-#: a group of 16 is built up to this head_dim (256 would need 64 KB of
-#: static shared memory a block)
-MAX_HEAD_DIM_G16 = 128
-#: keys per tile: the live range of a sequence is cut into runs of whole
-#: tiles, one run per block
+#: the fp32 kernel takes a group of 16 up to this head_dim (256 would need
+#: 64 KB of static shared memory a block); the mma kernel takes every head_dim
+MAX_HEAD_DIM_G16_FP32 = 128
+#: keys per tile: the live range of a sequence is cut into tiles, and each
+#: block takes a run of whole tiles
 TILE = 64
-#: blocks the split grid aims at: four for each of the H100's 132 SMs, as
-#: many as fit on an SM at once (128 threads of 128 registers each); at most
-#: 1024 splits, which the merge kernel takes
-TARGET_BLOCKS = 528
+#: blocks the split grid aims at, by kernel. "mma": as many as the H100's
+#: 132 SMs hold at once (``mma_blocks_per_sm``): one block alone streams far
+#: below the card's rate, and a second wave would wait for the first.
+#: "fp32": four for each SM, as many as fit at once (128 threads of 128
+#: registers)
+TARGET_BLOCKS = {"mma": 132, "fp32": 528}
+#: the most splits each kernel merges: the mma kernel's merge keeps every
+#: split's (m, l) and partial acc in shared memory (``MERGE_BYTES``), the fp32
+#: merge kernel takes 1024
+MAX_SPLITS = {"mma": 132, "fp32": 1024}
+#: shared memory the mma kernel's merge may stage: a (m, l) row of 16 float2
+#: and a [group, head_dim] fp32 acc per split
+MERGE_BYTES = 200 * 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: (q dtype, cache dtype) pairs the kernel takes; the output is in q's dtype
-_PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-          (torch.float32, torch.bfloat16)}
+#: (q dtype, cache dtype) -> the kernel that takes it; the output is in q's
+#: dtype
+_KERNELS = {(torch.bfloat16, torch.bfloat16): "mma",
+            (torch.float32, torch.float32): "fp32",
+            (torch.float32, torch.bfloat16): "fp32"}
 
-#: launches of the CUDA kernel since the last reset (set to 0 to reset)
+#: launches of the CUDA kernels since the last reset (set to 0 to reset)
 launches = 0
+#: the same by kernel
+kernel_launches = {"mma": 0, "fp32": 0}
+#: per device index: the mma kernel's merge counters, int32, zero between
+#: calls
+_tickets: dict[int, torch.Tensor] = {}
 
 
-def num_splits(b: int, kv: int, s: int, window: Optional[int]) -> int:
-    """Blocks per (sequence, KV head): enough to fill the card, and no more
-    than the tiles of the longest live range the cache can hold."""
+def kernel_for(q_dtype: torch.dtype, cache_dtype: torch.dtype) -> str:
+    """The kernel a call with q in ``q_dtype`` over a cache in
+    ``cache_dtype`` launches: "mma" (both bfloat16) or "fp32"."""
+    try:
+        return _KERNELS[(q_dtype, cache_dtype)]
+    except KeyError:
+        raise ValueError(f"dtypes q {q_dtype}, cache {cache_dtype}: the "
+                         f"kernels take (q, cache) in "
+                         f"{sorted((str(a), str(c)) for a, c in _KERNELS)}"
+                         ) from None
+
+
+def mma_blocks_per_sm(head_dim: int) -> int:
+    """Blocks of the mma kernel an SM holds at once: one at head_dim 256
+    (over 200 registers a thread, and a ring of 3 stages of 66 KB), two
+    below (a ring of 3 stages of 35 KB at head_dim 128)."""
+    return 1 if head_dim > 128 else 2
+
+
+def num_splits(b: int, kv: int, s: int, window: Optional[int],
+               group: int = 1, head_dim: int = 256,
+               kernel: str = "mma") -> int:
+    """Blocks per (sequence, KV head), from the shapes only, never ``pos``,
+    so that a call captured in a CUDA graph stays valid as ``pos`` moves.
+
+    Enough blocks to fill the card (``TARGET_BLOCKS``; for the mma kernel
+    in one wave of the blocks the SMs hold, so that no block waits for
+    another to finish), no more than the tiles of the longest live range the
+    cache can hold, and, for the mma kernel, no more than keep its merge
+    cheap: one block reads every split's fp32 partial (``group`` x head_dim
+    floats each), so the splits are held to where those reads are at most
+    what a block streams of the longest live range: splits^2 x group x 4
+    bytes <= tiles x 64 keys x 4 bytes (a key's K and V rows in bf16),
+    splits <= sqrt(64 tiles / group), and to what the merge can stage in
+    shared memory at once (``MERGE_BYTES``)."""
     live = min(s, window) if window is not None else s
-    want = -(-TARGET_BLOCKS // (b * kv))
-    return max(1, min(want, -(-live // TILE)))
+    tiles = -(-live // TILE)
+    if kernel == "mma":
+        resident = TARGET_BLOCKS[kernel] * mma_blocks_per_sm(head_dim)
+        n = min(resident // (b * kv), math.isqrt(64 * tiles // group),
+                MERGE_BYTES // (128 + 4 * group * head_dim))
+    else:
+        n = -(-TARGET_BLOCKS[kernel] // (b * kv))
+    return max(1, min(n, tiles, MAX_SPLITS[kernel]))
+
+
+def _tickets_for(device: torch.device, n: int) -> torch.Tensor:
+    t = _tickets.get(device.index)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 2 * t.numel() if t is not None else 0),
+                        dtype=torch.int32, device=device)
+        _tickets[device.index] = t
+    return t
 
 
 def decode_attention(
@@ -71,10 +147,9 @@ def decode_attention(
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("decode_attention kernel needs q, the cache and pos "
                          "as CUDA tensors on one device")
-    if (q.dtype, k_cache.dtype) not in _PAIRS or v_cache.dtype != k_cache.dtype:
-        raise ValueError(f"dtypes q {q.dtype}, k {k_cache.dtype}, v "
-                         f"{v_cache.dtype}: the kernel takes (q, cache) in "
-                         f"{sorted((str(a), str(c)) for a, c in _PAIRS)}")
+    if v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"dtypes k {k_cache.dtype}, v {v_cache.dtype} differ")
+    kernel = kernel_for(q.dtype, k_cache.dtype)
     if k_cache.shape != (b, s, kv, h) or v_cache.shape != k_cache.shape:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
                          f"v {tuple(v_cache.shape)} do not match")
@@ -86,9 +161,9 @@ def decode_attention(
                          f"must be one of {GROUPS}")
     if h not in HEAD_DIMS:
         raise ValueError(f"head_dim {h} not in {HEAD_DIMS}")
-    if n // kv == 16 and h > MAX_HEAD_DIM_G16:
-        raise ValueError(f"a group of 16 query heads takes head_dim up to "
-                         f"{MAX_HEAD_DIM_G16}, got {h}")
+    if kernel == "fp32" and n // kv == 16 and h > MAX_HEAD_DIM_G16_FP32:
+        raise ValueError(f"with float32 q a group of 16 query heads takes "
+                         f"head_dim up to {MAX_HEAD_DIM_G16_FP32}, got {h}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
@@ -100,24 +175,39 @@ def decode_attention(
     q = q.contiguous()
     pos = pos.to(torch.int32).contiguous()
     scale = scale if scale is not None else h ** -0.5
-    splits = num_splits(b, kv, s, window)
+    splits = num_splits(b, kv, s, window, n // kv, h, kernel)
     g = n // kv
     out = torch.empty_like(q)
-    part_acc = torch.empty((b, kv, splits, g, h), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((b, kv, splits, g, 2), dtype=torch.float32,
-                          device=q.device)
     lib = build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_decode_attention_fwd(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), _DTYPES[q.dtype], _DTYPES[k_cache.dtype],
-            b, s, n, kv, h, splits, TILE, float(scale), window or 0,
-            float(softcap or 0.0), stream)
-    build.check(lib, err, "decode_attention launch")
+        if kernel == "mma":
+            part = tickets = None
+            if splits > 1:
+                part = torch.empty(b * kv * splits * g * (h + 2),
+                                   dtype=torch.float32, device=q.device)
+                tickets = _tickets_for(q.device, b * kv)
+            err = lib.repro_decode_attention_mma_fwd(
+                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                pos.data_ptr(), out.data_ptr(),
+                part.data_ptr() if part is not None else None,
+                tickets.data_ptr() if tickets is not None else None,
+                b, s, n, kv, h, splits, float(scale), window or 0,
+                float(softcap or 0.0), stream)
+        else:
+            part_acc = torch.empty((b, kv, splits, g, h), dtype=torch.float32,
+                                   device=q.device)
+            part_ml = torch.empty((b, kv, splits, g, 2), dtype=torch.float32,
+                                  device=q.device)
+            err = lib.repro_decode_attention_fwd(
+                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+                part_ml.data_ptr(), _DTYPES[q.dtype], _DTYPES[k_cache.dtype],
+                b, s, n, kv, h, splits, TILE, float(scale), window or 0,
+                float(softcap or 0.0), stream)
+    build.check(lib, err, f"decode_attention ({kernel}) launch")
     launches += 1
+    kernel_launches[kernel] += 1
     return out
 
 

@@ -211,9 +211,13 @@ def _decode_inputs(rng, b, s, n, kv, h, dtype, device):
 
 def _check_decode(q, k, v, pos, win, cap):
     before = dec.launches
+    kernel = dec.kernel_for(q.dtype, k.dtype)
+    by_kernel = dict(dec.kernel_launches)
     got = ops.decode_attention(q, k, v, pos, window=win, softcap=cap)
     torch.cuda.synchronize()
     assert dec.launches == before + 1
+    by_kernel[kernel] += 1
+    assert dec.kernel_launches == by_kernel
     want = ref.decode_attention(q.float(), k.float(), v.float(), pos,
                                 window=win, softcap=cap)
     assert got.dtype == q.dtype and got.shape == q.shape
@@ -291,6 +295,105 @@ def test_decode_kernel_refuses_a_cache_it_would_have_to_copy(cuda):
         dec.decode_attention(torch.zeros((1, 12, 64), device=cuda),
                              k.contiguous(), k.contiguous(), pos)
     assert dec.launches == before
+
+
+# bf16 shapes whose calls split over several blocks and merge in the same
+# launch: (label, s, n, kv, h, window, softcap, pos)
+DECODE_MERGED = [
+    ("gemma2-2b global", 5120, 8, 4, 256, None, 50.0, [4640]),
+    ("qwen3-moe", 1056, 64, 4, 128, None, None, [1040]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_MERGED, ids=[c[0] for c in DECODE_MERGED])
+def test_decode_bf16_kernel_is_bit_repeatable(cuda, case):
+    """The last block of each (sequence, KV head) merges the splits in split
+    order, whatever order the blocks finished in: two calls agree bit for
+    bit."""
+    _, s, n, kv, h, win, cap, p = case
+    assert dec.num_splits(1, kv, s, win, n // kv, h) > 1
+    rng = np.random.default_rng(29)
+    q, k, v = _decode_inputs(rng, 1, s, n, kv, h, torch.bfloat16, cuda)
+    pos = torch.tensor(p, dtype=torch.int32, device=cuda)
+    first = _check_decode(q, k, v, pos, win, cap)
+    for _ in range(3):
+        again = ops.decode_attention(q, k, v, pos, window=win, softcap=cap)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_MERGED, ids=[c[0] for c in DECODE_MERGED])
+def test_decode_bf16_kernel_replays_in_a_cuda_graph(cuda, case):
+    """One bf16 call captured at one pos, replayed after the cache and pos
+    were changed in place, equals an eager call at the new pos: the merge
+    counters are back at zero after every call and nothing of the call
+    lives on the host."""
+    _, s, n, kv, h, win, cap, p = case
+    rng = np.random.default_rng(31)
+    q, k, v = _decode_inputs(rng, 1, s, n, kv, h, torch.bfloat16, cuda)
+    pos = torch.tensor([p[0] - 500], dtype=torch.int32, device=cuda)
+    run = lambda: ops.decode_attention(q, k, v, pos, window=win, softcap=cap)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()                                    # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for step, new_pos in enumerate((p[0], p[0] - 1, 7)):
+        q2, k2, v2 = _decode_inputs(np.random.default_rng(37 + step), 1, s, n,
+                                    kv, h, torch.bfloat16, cuda)
+        q.copy_(q2)
+        k.copy_(k2)
+        v.copy_(v2)
+        pos.fill_(new_pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = _check_decode(q, k, v, pos, win, cap)
+        assert torch.equal(out, eager), new_pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_MERGED, ids=[c[0] for c in DECODE_MERGED])
+def test_decode_bf16_call_runs_one_kernel(cuda, case):
+    """By the profiler's kernel names: one bf16 call is one launch of the
+    mma kernel, and neither fp32 kernel runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _, s, n, kv, h, win, cap, p = case
+    rng = np.random.default_rng(41)
+    q, k, v = _decode_inputs(rng, 1, s, n, kv, h, torch.bfloat16, cuda)
+    pos = torch.tensor(p, dtype=torch.int32, device=cuda)
+    ops.decode_attention(q, k, v, pos, window=win, softcap=cap)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ops.decode_attention(q, k, v, pos, window=win, softcap=cap)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)}
+    assert len(kernels) == 1 and sum(kernels.values()) == 1, kernels
+    assert "decode_mma_kernel" in next(iter(kernels)), kernels
+
+
+@pytest.mark.cuda
+def test_decode_bf16_group_of_16_at_head_dim_256(cuda):
+    """The mma kernel takes a group of 16 at head_dim 256 (the fp32 kernel
+    still refuses it), at one block and at several, with a window and a
+    softcap."""
+    rng = np.random.default_rng(43)
+    for b, s, n, kv, win, cap in ((2, 700, 64, 4, 300, 50.0),
+                                  (1, 5120, 16, 1, None, None)):
+        q, k, v = _decode_inputs(rng, b, s, n, kv, 256, torch.bfloat16, cuda)
+        for p in (0, s // 2 + 13, s - 1):
+            pos = torch.full((b,), p, dtype=torch.int32, device=cuda)
+            _check_decode(q, k, v, pos, win, cap)
+    with pytest.raises(ValueError, match="group of 16"):
+        dec.decode_attention(q.float(), k, v, pos)
 
 
 @pytest.mark.cuda

@@ -192,12 +192,75 @@ def test_bound_counts_only_the_live_keys():
 
 
 def test_num_splits_fills_the_card_within_the_live_range():
-    # gemma2-2b at B = 1: 4 KV heads, 5120 cache rows, 64-key tiles
-    assert dec.num_splits(1, 4, 5120, None) == 80
-    assert dec.num_splits(1, 4, 5120, 4096) == 64
+    # gemma2-2b at B = 1: 4 KV heads of groups of 2 at head_dim 256, 5120
+    # cache rows, 64-key tiles; the mma kernel fills the 132 SMs once (one
+    # block each at head_dim 256), the fp32 kernel aims at 528 blocks
+    assert dec.num_splits(1, 4, 5120, None, 2, 256) == 33
+    assert dec.num_splits(1, 4, 5120, 4096, 2, 256) == 33
+    assert dec.num_splits(1, 4, 5120, None, 2, 256, "fp32") == 80
+    assert dec.num_splits(1, 4, 5120, 4096, 2, 256, "fp32") == 64
+    # qwen1.5-4b: 20 KV heads at head_dim 128, two blocks an SM
+    assert dec.num_splits(1, 20, 4096, None, 1, 128) == 13
+    # the merge's caps: gemma-2b's one KV head of 8 over 8192 rows (128
+    # tiles) takes isqrt(64 * 128 / 8) = 32, less what the merge stages: 200
+    # KB over 8 KB and 128 bytes a split, 24; qwen3-moe's groups of 16 over
+    # 1056 rows (17 tiles) isqrt(68) = 8, phi3.5-moe's groups of 4 16
+    assert dec.num_splits(1, 1, 8192, None, 8, 256) == 24
+    assert dec.num_splits(1, 4, 1056, None, 16, 128) == 8
+    assert dec.num_splits(1, 8, 1056, None, 4, 128) == 16
     # a short cache never gets more splits than it has tiles
     assert dec.num_splits(1, 1, 100, None) == 2
+    assert dec.num_splits(1, 1, 100, None, kernel="fp32") == 2
     assert dec.num_splits(64, 20, 8192, None) == 1
+    assert dec.num_splits(64, 20, 8192, None, kernel="fp32") == 1
+
+
+@pytest.mark.parametrize("kernel", ["mma", "fp32"])
+def test_num_splits_is_bounded_by_the_live_tiles_and_the_merge(kernel):
+    """Over batch, KV heads, groups, head dims, cache rows and windows: at
+    least one split, never more than the tiles of the longest live range or
+    the merge's limit; for the mma kernel never more blocks than the SMs
+    hold at once unless one split a (sequence, KV head) already exceeds it,
+    never so many that the merge reads more than a block streams or stages
+    more than ``MERGE_BYTES``; for
+    the fp32 kernel never more blocks than its target beyond one split a
+    pair. The rule reads no pos, so one value serves every step of a
+    captured graph."""
+    import inspect
+    assert "pos" not in inspect.signature(dec.num_splits).parameters
+    for b in (1, 2, 3, 8, 64):
+        for kv in (1, 4, 8, 20):
+            for g in (1, 2, 4, 8, 16):
+                for h in (64, 128, 256):
+                    for s in (1, 63, 64, 65, 1056, 5120, 8192):
+                        for window in (None, 1, 100, 4096, 10000):
+                            n = dec.num_splits(b, kv, s, window, g, h, kernel)
+                            live = min(s, window) if window is not None else s
+                            tiles = -(-live // dec.TILE)
+                            assert 1 <= n <= tiles
+                            assert n <= dec.MAX_SPLITS[kernel]
+                            if kernel == "fp32":
+                                assert n == 1 or b * kv * n < \
+                                    dec.TARGET_BLOCKS[kernel] + b * kv
+                                continue
+                            resident = dec.TARGET_BLOCKS[kernel] * \
+                                dec.mma_blocks_per_sm(h)
+                            assert n == 1 or b * kv * n <= resident
+                            assert n == 1 or n * n * g * 4 <= \
+                                tiles * dec.TILE * 4
+                            assert n == 1 or n * (128 + 4 * g * h) <= \
+                                dec.MERGE_BYTES
+
+
+def test_kernel_for_picks_by_the_dtype_pair():
+    assert dec.kernel_for(torch.bfloat16, torch.bfloat16) == "mma"
+    assert dec.kernel_for(torch.float32, torch.float32) == "fp32"
+    assert dec.kernel_for(torch.float32, torch.bfloat16) == "fp32"
+    assert set(dec.kernel_launches) == {"mma", "fp32"}
+    for pair in ((torch.bfloat16, torch.float32),
+                 (torch.float16, torch.float16)):
+        with pytest.raises(ValueError, match="dtypes"):
+            dec.kernel_for(*pair)
 
 
 # ---------------------------------------------------------------------------
