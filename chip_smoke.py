@@ -12,9 +12,11 @@ Phases, each of which raises (exit code != 0) on any failure:
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the full-width shapes of the served models (gemma2-2b attention:
    head_dim 256, window 4096, softcap 50, at S 8192, 4608 (phase 7's
-   prefill) and 1024 (served); mamba2-130m SSD: 24 heads of 64,
-   state 128, chunk 256; phi3.5-moe's and qwen3-moe's attention prefills at
-   head_dim 128, groups of 4 and 16) and at smoke width, in float32 and
+   prefill) and 1024 (served); phi3.5-moe's and qwen3-moe's attention
+   prefills at head_dim 128, groups of 4 and 16; phi-3-vision's at head_dim
+   96 and zamba2-2.7b's shared block at 160, 1024 tokens, 32 heads;
+   mamba2-130m SSD: 24 heads of 64, state 128, chunk 256; zamba2-2.7b's: 80
+   heads of 64, state 64) and at smoke width, in float32 and
    bfloat16, timed with CUDA events (median of several runs after warm-up,
    a cold L2 and the host's launch path off the clock; SDPA beside flash);
    the bfloat16 flash cases also show that their gate rejects the kernel
@@ -30,10 +32,14 @@ Phases, each of which raises (exit code != 0) on any failure:
 5. serving: the serve_rtmm workload through ``repro_torch.launch.serve`` and
    ``repro_torch.serving``, in bfloat16, with gemma2-2b at its published
    width (4 layers, and 2 for its supernet variant) and mamba2-130m whole,
-   both on 1024-token prompts. Before the run, the full-width bfloat16
-   forwards of both are held, each kernel call inside them and the logits,
-   against the plain versions in float32; after the run, the kernels'
-   launch counters must match the frames the engine ran;
+   both on 1024-token prompts, kws's frames arriving as a Poisson process.
+   Before the run, the full-width bfloat16 forwards of both are held, each
+   kernel call inside them and the logits, against the plain versions in
+   float32; after the run, the kernels' launch counters must match the
+   frames the engine ran. A second run, in a fresh engine, replays the head
+   arrivals the first run's queue emitted (recorded by ``TraceRecorder``,
+   written and read back as JSONL) through ``TraceReplayQueue``: each head
+   stream must emit the same frames at the same times;
 6. profile: one synchronised forward of context and of kws under
    ``torch.profiler``, device time by kernel;
 7. decode: the decode-attention kernel against its plain version at the
@@ -44,13 +50,15 @@ Phases, each of which raises (exit code != 0) on any failure:
    one; the four architectures at smoke width, prefill and decode steps on
    the card against the CPU; gemma2-2b at its published config, all 26
    layers, prefill of 4608 tokens into a 5120-row cache and 32 greedy
-   decode steps (every decode-attention call of the first and last step
-   held against float32, the decoded logits against forward on the
-   extended tokens, the launch counters against steps x layers, all on
-   "mma"), and mamba2-130m whole, 1024 tokens and 32 steps; ms per decoded
-   token; a profiled step of each must run ``decode_mma_kernel`` once per
-   attention layer by the profiler's kernel names, and neither fp32
-   kernel;
+   decode steps (every flash call of the prefill and every decode-attention
+   call of the first and last step held against float32, the decoded
+   logits against forward on the extended tokens, the launch counters
+   against the calls the config makes, all on "mma"), and mamba2-130m
+   whole, 1024 tokens and 32 steps (its SSD calls held likewise); prefill
+   ms and ms per decoded token; a profiled step of each must run
+   ``decode_mma_kernel`` once per attention layer by the profiler's kernel
+   names, and neither fp32 kernel, and a profiled prefill the wgmma flash
+   instance of its head dim once per attention layer;
 8. MoE: the grouped-matmul kernel against its plain version (the
    reference's cases, empty groups, one group of every row, groups ending
    mid-tile, and phi3.5-moe's and qwen3-moe's full-width prefill and decode
@@ -68,11 +76,20 @@ Phases, each of which raises (exit code != 0) on any failure:
    and float32 counted, the logits held on the tokens routed alike, the
    launch counters against (prefill + steps) x layers x 3, the prefill's on
    the wgmma kernel and the steps' on the split path, and a profiled step's
-   decode kernels by name as in phase 7.
+   decode kernels by name as in phase 7;
+9. the remaining architectures: the decode kernel at phi-3-vision's head
+   dim 96 and zamba2-2.7b's shared block's 160 (``DECODE_ARCH_CASES``) with
+   phase 7's gates; then zamba2-2.7b (54 mamba blocks and 9 applications of
+   the shared block), phi-3-vision (32 layers, a 576-position frontend
+   stub), musicgen-large (48 layers, a 256-position stub, absolute
+   positions) and minitron-8b (32 layers), each whole, at its published
+   width in bf16, through phase 7's run (1024-token prefill into a
+   1056-row cache, 16 greedy steps) with all of its checks.
 
 The ``kernels`` line's launches add up each kernel's counted runs: flash
-over the serving run and the MoE prefills, SSD over the serving run,
-decode attention over the decode and MoE steps, gmm over the MoE runs.
+over the two serving runs and the counted prefills of phases 7-9, SSD over
+the serving runs and the counted prefills, decode attention over the steps
+of phases 7-9, gmm over the MoE runs.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -81,6 +98,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -243,11 +261,17 @@ FLASH_FULL_WIDTH = [
     ("gemma2-2b serving", 1, 1024, 8, 4, 256, 4096, 50.0),
     ("phi3.5-moe prefill", 1, 1024, 32, 8, 128, None, None),
     ("qwen3-moe prefill", 1, 1024, 64, 4, 128, None, None),
+    ("phi-3-vision prefill", 1, 1024, 32, 32, 96, None, None),
+    ("zamba2-2.7b shared prefill", 1, 1024, 32, 32, 160, None, None),
 ]
 FLASH_SMOKE = [
     ("smoke MQA", 1, 32, 4, 1, 16, None, None),
     ("smoke MHA", 1, 32, 4, 4, 16, None, None),
     ("smoke gemma2", 1, 32, 4, 4, 16, 8, 50.0),
+    # the new head dims under a window and a softcap, so that their gates
+    # are shown rejecting both faults
+    ("smoke H=96", 1, 300, 4, 2, 96, 100, 50.0),
+    ("smoke H=160", 1, 300, 4, 2, 160, 100, 50.0),
 ]
 FLASH_REPS = 10
 
@@ -327,9 +351,12 @@ def check_flash(torch, gen):
                 del qt, kt, vt
             core = (f" fp32_cuda_core_bound_ms={flops / PEAK_FP32_CORES * 1e3}"
                     if dname == "float32" else "")
+            margin = f" margin={BF16_REL_L2 / rel}" if rel else ""
+            stages = (f" stages={fa.wgmma_stages(h)}" if kernel == "wgmma"
+                      else "")
             log(f"[kernels] flash_attention {label} {dname} B={b} S={s} N={n} "
-                f"K={k} H={h} window={win} softcap={cap} kernel={kernel}: "
-                f"max_abs_err={err} rel_l2_err={rel} ms={ms} "
+                f"K={k} H={h} window={win} softcap={cap} kernel={kernel}"
+                f"{stages}: max_abs_err={err} rel_l2_err={rel}{margin} ms={ms} "
                 f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by})"
                 f"{core} library_ms={lib_ms}")
             if label == "gemma2-2b global" and dname == "bfloat16":
@@ -347,6 +374,7 @@ def check_flash(torch, gen):
 SSD_FULL_WIDTH = [
     ("mamba2-130m", 1, 4096, 24, 64, 128, 256),
     ("mamba2-130m serving", 1, 1024, 24, 64, 128, 256),
+    ("zamba2-2.7b", 1, 1024, 80, 64, 64, 256),
 ]
 SSD_SMOKE = [
     ("smoke", 1, 16, 4, 32, 16, 8),
@@ -455,8 +483,9 @@ def check_ssd(torch, gen):
                       + 4 * (dt.numel() + B.numel() + C.numel() + 2 * h
                              + fin.numel()))
             bound_ms, bound_by = bound(flops, nbytes)
+            margin = f" margin={BF16_REL_L2 / rel}" if rel else ""
             log(f"[kernels] ssd {label} x={dname} B={b} S={s} H={h} P={p} "
-                f"N={n} chunk={ch}: max_abs_err={err} rel_l2_err={rel} "
+                f"N={n} chunk={ch}: max_abs_err={err} rel_l2_err={rel}{margin} "
                 f"ms={ms} plain_ms={plain_ms} bound_ms={bound_ms} "
                 f"({bound_by}) fp32_cuda_core_bound_ms="
                 f"{flops / PEAK_FP32_CORES * 1e3} library_ms=None")
@@ -467,6 +496,92 @@ def check_ssd(torch, gen):
             del x, dt, B, C, y, fin, y_ref, fin_ref
             torch.cuda.empty_cache()
     return headline
+
+
+# ---------------------------------------------------------------------------
+# kernel calls inside a model, held against float32 where they happen
+# ---------------------------------------------------------------------------
+
+
+class tap_kernels:
+    """Inside ``with tap_kernels() as calls:``, every flash and SSD call
+    of the port's models is recorded as (kernel, the shape of q or x, of k
+    or B, the dtype, the window or the SSD's (dt, B, C) dtypes, the softcap
+    or chunk, the relative L2 error of the kernel's output against the plain
+    version in float32 on the same inputs)."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops, ref
+        self.ops, self.ref, self.calls = ops, ref, []
+
+    def flash(self, q, k, v, **kw):
+        out = self.real[0](q, k, v, **kw)
+        want = self.ref.attention(q.float(), k.float(), v.float(), **kw)
+        self.calls.append(("flash", tuple(q.shape), tuple(k.shape), q.dtype,
+                           kw.get("window"), kw.get("softcap"),
+                           rel_l2(out, want)))
+        return out
+
+    def ssd(self, x, dt, A, B, C, D, *, chunk):
+        y, fin = self.real[1](x, dt, A, B, C, D, chunk=chunk)
+        s = x.shape[1]
+        xp, dtp, Bp, Cp, ch = self.ops.pad_to_chunk(chunk, x.float(), dt, B, C)
+        y32, fin32 = self.ref.ssd_chunked(xp, dtp, A, Bp, Cp, D, chunk=ch)
+        self.calls.append(("ssd", tuple(x.shape), tuple(B.shape), x.dtype,
+                           (dt.dtype, B.dtype, C.dtype), chunk,
+                           max(rel_l2(y, y32[:, :s]), rel_l2(fin, fin32))))
+        return y, fin
+
+    def __enter__(self):
+        self.real = (self.ops.flash_attention, self.ops.ssd)
+        self.ops.flash_attention, self.ops.ssd = self.flash, self.ssd
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention, self.ops.ssd = self.real
+
+
+def expected_calls(torch, M, cfg, s: int) -> list:
+    """The flash and SSD calls (as ``tap_kernels`` records them, less the
+    error) that a bf16 forward or prefill of one sequence of ``s`` tokens
+    makes, in order: zamba2's shared block at the head of each group."""
+    bf, f32 = torch.bfloat16, torch.float32
+    out = []
+
+    def flash(acfg):
+        return ("flash", (1, s, acfg.num_heads, acfg.head_dim),
+                (1, s, acfg.num_kv_heads, acfg.head_dim), bf, acfg.window,
+                acfg.logit_softcap)
+    for _ in range(M.num_groups(cfg)):
+        if cfg.shared_attn_every:
+            out.append(flash(M.shared_attn_cfg_for(cfg)))
+        for kind in M.group_pattern(cfg):
+            if kind == "mamba":
+                n = cfg.ssm_heads
+                out.append(("ssd", (1, s, n, cfg.ssm_expand * cfg.d_model // n),
+                            (1, s, cfg.ssm_state), bf, (f32,) * 3,
+                            cfg.ssm_chunk))
+            else:
+                out.append(flash(M.attn_cfg_for(cfg, kind)))
+    return out
+
+
+def check_taps(label: str, calls: list, expect: list, log_tag: str) -> float:
+    """The tapped calls must be the expected ones, each within BF16_REL_L2
+    of float32; returns the worst error."""
+    seen = [c[:-1] for c in calls]
+    if seen != expect:
+        raise AssertionError(f"{label}: kernel calls {seen}, expected "
+                             f"{expect}")
+    worst = max(c[-1] for c in calls)
+    kinds = sorted({c[0] for c in calls})
+    log(f"[{log_tag}] {label}: {len(calls)} {'/'.join(kinds)} calls as the "
+        f"config sets them; the worst relative L2 err against the float32 "
+        f"plain version on the same inputs {worst} (gate {BF16_REL_L2}, "
+        f"margin {BF16_REL_L2 / worst if worst else float('inf')})")
+    if worst > BF16_REL_L2:
+        raise AssertionError(f"{label}: a kernel call off by {worst}")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -508,29 +623,7 @@ def check_served_forward(torch, cases) -> None:
     kernels, which keep float32 the longer, so the kernel forward must be no
     further from it than twice the plain bf16 forward is.
     """
-    from repro_torch.kernels import ops, ref
     from repro_torch.models import model as M
-
-    calls = []
-    flash, ssd = ops.flash_attention, ops.ssd
-
-    def tapped_flash(q, k, v, **kw):
-        out = flash(q, k, v, **kw)
-        want = ref.attention(q.float(), k.float(), v.float(), **kw)
-        calls.append(("flash", tuple(q.shape), tuple(k.shape), q.dtype,
-                      kw.get("window"), kw.get("softcap"),
-                      rel_l2(out, want)))
-        return out
-
-    def tapped_ssd(x, dt, A, B, C, D, *, chunk):
-        y, fin = ssd(x, dt, A, B, C, D, chunk=chunk)
-        s = x.shape[1]
-        xp, dtp, Bp, Cp, ch = ops.pad_to_chunk(chunk, x.float(), dt, B, C)
-        y32, fin32 = ref.ssd_chunked(xp, dtp, A, Bp, Cp, D, chunk=ch)
-        calls.append(("ssd", tuple(x.shape), tuple(B.shape), x.dtype,
-                      (dt.dtype, B.dtype, C.dtype), chunk,
-                      max(rel_l2(y, y32[:, :s]), rel_l2(fin, fin32))))
-        return y, fin
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     for h, s in cases:
@@ -538,40 +631,12 @@ def check_served_forward(torch, cases) -> None:
         tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
                                device="cuda", dtype=torch.int32)
         with torch.inference_mode():
-            calls.clear()
-            ops.flash_attention, ops.ssd = tapped_flash, tapped_ssd
-            try:
+            with tap_kernels() as calls:
                 got = M.forward(h.params, cfg, tokens)[0]
-            finally:
-                ops.flash_attention, ops.ssd = flash, ssd
             if not torch.isfinite(got).all():
                 raise AssertionError(f"{h.name} S={s}: non-finite logits")
-            if cfg.family == "ssm":
-                n = cfg.ssm_heads
-                p = cfg.ssm_expand * cfg.d_model // n
-                expect = [("ssd", (1, s, n, p), (1, s, cfg.ssm_state),
-                           torch.bfloat16, (torch.float32,) * 3, cfg.ssm_chunk)
-                          ] * cfg.num_layers
-            else:
-                hd = cfg.resolved_head_dim
-                expect = [("flash", (1, s, cfg.num_heads, hd),
-                           (1, s, cfg.num_kv_heads, hd),
-                           torch.bfloat16,
-                           cfg.local_window if kind == "local" else None,
-                           cfg.attn_logit_softcap)
-                          for _ in range(M.num_groups(cfg))
-                          for kind in M.group_pattern(cfg)]
-            seen = [c[:-1] for c in calls]
-            if seen != expect:
-                raise AssertionError(f"{h.name}: kernel calls {seen}, "
-                                     f"expected {expect}")
-            worst = max(c[-1] for c in calls)
-            log(f"[model] {h.name} ({cfg.name}) bf16 S={s}: {len(calls)} "
-                f"{calls[0][0]} calls as the config sets them; the worst "
-                f"relative L2 err against the float32 plain version on the "
-                f"same inputs {worst} (gate {BF16_REL_L2})")
-            if worst > BF16_REL_L2:
-                raise AssertionError(f"{h.name}: a kernel call off by {worst}")
+            check_taps(f"{h.name} ({cfg.name}) bf16 S={s}", calls,
+                       expected_calls(torch, M, cfg, s), "model")
 
             p32 = M.tree_map(lambda t: t.float(), h.params)
             want = M.forward(p32, dataclasses.replace(cfg, dtype="float32"),
@@ -605,8 +670,10 @@ def serve(torch) -> dict:
     from repro_torch.kernels import ssd as ssd_mod
     from repro_torch.launch.serve import build_handle
     from repro_torch.models import model as M
+    from repro_torch.scenarios.trace import TraceRecorder, dumps, loads
     from repro_torch.serving import (ModelHandle, RequestQueue,
-                                     ServingEngine, VirtualAccelerator)
+                                     ServingEngine, TraceReplayQueue,
+                                     VirtualAccelerator)
 
     def full_width(arch: str, name: str, layers: int | None, seed: int):
         cfg = get_config(arch)
@@ -622,11 +689,6 @@ def serve(torch) -> dict:
         return ModelHandle(name=name, cfg=cfg, params=params, fn=fn)
 
     t0 = time.perf_counter()
-    accs = [VirtualAccelerator("big0", speed=1.0, power=1.0),
-            VirtualAccelerator("small0", speed=0.45, power=0.4),
-            VirtualAccelerator("small1", speed=0.45, power=0.4)]
-    engine = ServingEngine(accs, adaptivity=True, frame_drop=True,
-                           supernet_switch=True)
     det = build_handle("gemma-2b", "detector", layers=2)
     verif = build_handle("qwen1.5-4b", "verifier", layers=2)
     ctx = full_width("gemma2-2b", "context", 4, seed=1)
@@ -646,34 +708,69 @@ def serve(torch) -> dict:
             calls[_name] += 1
             return _fn(p, tokens)
         h.fn = counted
-    for h in (det, verif):
-        engine.register(h, np.zeros((1, 32), np.int32))
-    for h in (ctx, ctx_v1, kws):
-        engine.register(h, np.zeros((1, prompt), np.int32))
-    for acc in accs:
-        log(f"[serve] lat_table {acc.name}: " + " ".join(
-            f"{h.name}={engine.lat_table[(h.name, acc.name)] * 1e3:.3f}ms"
-            for h in handles))
+
+    def make_engine() -> ServingEngine:
+        """A fresh engine (slices idle, statistics empty) with every handle
+        registered and calibrated."""
+        accs = [VirtualAccelerator("big0", speed=1.0, power=1.0),
+                VirtualAccelerator("small0", speed=0.45, power=0.4),
+                VirtualAccelerator("small1", speed=0.45, power=0.4)]
+        engine = ServingEngine(accs, adaptivity=True, frame_drop=True,
+                               supernet_switch=True)
+        for h in (det, verif):
+            engine.register(h, np.zeros((1, 32), np.int32))
+        for h in (ctx, ctx_v1, kws):
+            engine.register(h, np.zeros((1, prompt), np.int32))
+        for acc in accs:
+            log(f"[serve] lat_table {acc.name}: " + " ".join(
+                f"{h.name}={engine.lat_table[(h.name, acc.name)] * 1e3:.3f}ms"
+                for h in handles))
+        return engine
+    engine = make_engine()
     log(f"[serve] set-up (build handles + calibrate) "
         f"{time.perf_counter() - t0:.1f} s")
 
-    q = RequestQueue(clock=lambda: 0.0)
-    q.add_stream("detector", fps=8, batch=1, seq=32, vocab=128)
-    q.add_stream("verifier", fps=8, batch=1, seq=32, vocab=128,
-                 depends_on="detector", trigger_prob=0.5)
-    q.add_stream("context", fps=4, batch=1, seq=prompt,
-                 vocab=ctx.cfg.vocab_size)
-    q.add_stream("kws", fps=12, batch=1, seq=prompt, vocab=kws.cfg.vocab_size)
+    def add_streams(q, kws_arrival=None):
+        q.add_stream("detector", fps=8, batch=1, seq=32, vocab=128)
+        q.add_stream("verifier", fps=8, batch=1, seq=32, vocab=128,
+                     depends_on="detector", trigger_prob=0.5)
+        q.add_stream("context", fps=4, batch=1, seq=prompt,
+                     vocab=ctx.cfg.vocab_size)
+        q.add_stream("kws", fps=12, batch=1, seq=prompt,
+                     vocab=kws.cfg.vocab_size, arrival=kws_arrival)
+        return q
 
+    attn_layers = {h.name: (0 if h.cfg.family == "ssm" else h.cfg.num_layers)
+                   for h in handles}
+
+    def counted_run(engine, q, duration_s: float, what: str):
+        """One engine run; the kernels' launch counters must match the
+        layers of the model calls it made."""
+        for h in handles:
+            calls[h.name] = 0
+        reset_flash_counters(fa)
+        reset_ssd_counters(ssd_mod)
+        report = engine.run(q, duration_s=duration_s)
+        launches = {"flash_attention": fa.launches, "ssd": ssd_mod.launches}
+        flash_by_kernel(fa, what)
+        ssd_by_kernel(ssd_mod, what)
+        log(f"[serve] {what}: model calls {calls}; kernel launches {launches}")
+        want_flash = sum(calls[n] * attn_layers[n] for n in calls)
+        want_ssd = calls["kws"] * kws.cfg.num_layers
+        if launches != {"flash_attention": want_flash, "ssd": want_ssd}:
+            raise AssertionError(f"{what}: launch counts {launches} do not "
+                                 f"match the served calls: flash "
+                                 f"{want_flash}, ssd {want_ssd}")
+        if not (launches["flash_attention"] > 0 and launches["ssd"] > 0):
+            raise AssertionError(f"{what}: a kernel was not launched: "
+                                 f"{launches}")
+        return report, launches
+
+    # kws's microphone frames arrive as a Poisson process at its 12 FPS
+    q = add_streams(RequestQueue(clock=lambda: 0.0),
+                    kws_arrival={"kind": "poisson"})
     torch.cuda.reset_peak_memory_stats()
-    for h in handles:
-        calls[h.name] = 0
-    reset_flash_counters(fa)
-    reset_ssd_counters(ssd_mod)
-    report = engine.run(q, duration_s=5.0)
-    launches = {"flash_attention": fa.launches, "ssd": ssd_mod.launches}
-    flash_by_kernel(fa, "serving run")
-    ssd_by_kernel(ssd_mod, "serving run")
+    report, launches = counted_run(engine, q, 5.0, "serving run")
 
     log(f"[serve] {report.summary()}")
     log(f"[serve] (alpha, beta) = ({report.alpha}, {report.beta}); "
@@ -682,17 +779,6 @@ def serve(torch) -> dict:
     for name, st in sorted(report.per_model.items()):
         log(f"[serve]   {name:>12s} frames={st['frames']:4d} "
             f"violated={st['violated']:4d} energy={st['energy']}")
-    log(f"[serve] model calls {calls}; kernel launches {launches}")
-
-    attn_layers = {h.name: (0 if h.cfg.family == "ssm" else h.cfg.num_layers)
-                   for h in handles}
-    want_flash = sum(calls[n] * attn_layers[n] for n in calls)
-    want_ssd = calls["kws"] * kws.cfg.num_layers
-    if launches != {"flash_attention": want_flash, "ssd": want_ssd}:
-        raise AssertionError(f"launch counts {launches} do not match the "
-                             f"served calls: flash {want_flash}, ssd {want_ssd}")
-    if not (launches["flash_attention"] > 0 and launches["ssd"] > 0):
-        raise AssertionError(f"a kernel was not launched: {launches}")
     for stream in ("detector", "verifier", "context", "kws"):
         if report.per_model.get(stream, {}).get("frames", 0) <= 0:
             raise AssertionError(f"stream {stream} served no frames")
@@ -707,7 +793,38 @@ def serve(torch) -> dict:
             raise AssertionError(f"{name}: non-finite logits")
     log(f"[serve] {len(served)} results checked for shape, the last of each "
         f"model ({sorted(last)}) for finite logits")
-    del q, served, last
+
+    # the same handles, in a fresh engine, fed by a TraceReplayQueue
+    # replaying the head arrivals that the first run's queue emitted,
+    # recorded through TraceRecorder and carried as JSONL: each head stream
+    # must emit the same frames at the same times (the run lasts a little
+    # longer than the first, so that the last recorded arrival comes due)
+    rec = TraceRecorder({"scenario": "chip_smoke serving run"})
+    for r in q.pending:
+        if r.depends_on is None:
+            rec.arrival(r.arrival, r.model)
+    recorded = loads(dumps(rec.trace())).arrivals_by_model()
+    rq = add_streams(TraceReplayQueue(clock=lambda: 0.0,
+                                      trace=loads(dumps(rec.trace()))))
+    replay, replay_launches = counted_run(make_engine(), rq, 5.5,
+                                          "trace replay run")
+    log(f"[serve] trace replay: {replay.summary()}")
+    for name, st in sorted(replay.per_model.items()):
+        log(f"[serve]   {name:>12s} frames={st['frames']:4d} "
+            f"violated={st['violated']:4d} energy={st['energy']}")
+    for stream in ("detector", "context", "kws"):
+        got = [r.arrival for r in rq.pending
+               if r.model == stream and r.depends_on is None]
+        want = recorded.get(stream, [])
+        log(f"[serve] trace replay {stream}: {len(got)} frames emitted, "
+            f"{len(want)} recorded; arrival times equal: {got == want}")
+        if not want or got != want:
+            raise AssertionError(f"trace replay {stream}: emitted {len(got)} "
+                                 f"frames, recorded {len(want)}, times "
+                                 f"{'equal' if got == want else 'differ'}")
+    for name in launches:
+        launches[name] += replay_launches[name]
+    del q, rq, served, last
     profile(torch, [(ctx, prompt), (kws, prompt)])
     return launches
 
@@ -899,7 +1016,8 @@ def check_decode_kernel(torch, gen, cases=DECODE_KERNEL_CASES):
             log(f"[decode] decode_attention {label} {dname} ({kernel}, "
                 f"{dec.num_splits(b, k, s, win, n // k, h, kernel)} splits) B={b} S={s} "
                 f"N={n} K={k} H={h} window={win} softcap={cap} pos={pos_list}: "
-                f"max_abs_err={err} rel_l2_err={rel} ms={ms} "
+                f"max_abs_err={err} rel_l2_err={rel}"
+                f"{f' margin={BF16_REL_L2 / rel}' if rel else ''} ms={ms} "
                 f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}, "
                 f"{nbytes} bytes, {flops} flops) library_ms={lib_ms}")
             if label == "gemma2-2b global" and dname == "bfloat16":
@@ -958,21 +1076,48 @@ def check_decode_models(torch) -> None:
             f"leaves: max_abs_err={err}")
 
 
-def decode_full_width(torch, arch: str, prompt: int, steps: int,
-                      max_seq: int, seed: int) -> dict:
-    """``prefill`` over a prompt, then greedy ``decode_step``s, of one
-    architecture at its published config in bf16 (weights from a seed).
+def check_flash_launches(rows, want: dict, label: str) -> None:
+    """A profiled call (``rows`` from ``profile_fn``) must run the wgmma
+    flash kernel's instance of each head dim as often as ``want`` says
+    ({head_dim: launches}) and no float32 flash kernel, by the profiler's
+    kernel names."""
+    by_name = {}
+    for _, count, key in rows:
+        m = re.search(r"flash_(wgmma|f32)_kernel<(\d+)>", key)
+        if m:
+            name = f"flash_{m.group(1)}_kernel<{m.group(2)}>"
+            by_name[name] = by_name.get(name, 0) + count
+    want = {f"flash_wgmma_kernel<{h}>": n for h, n in want.items()}
+    log(f"[decode] {label}: flash kernels by name in one profiled call "
+        f"{by_name}, expected {want}")
+    if by_name != want:
+        raise AssertionError(f"{label}: flash kernels {by_name}, expected "
+                             f"{want}")
 
-    Every decode_attention call of the first and last step is held, on the
-    inputs the model gave it, against the plain version in float32 (gate
-    BF16_REL_L2), and its arguments are checked. The decoded logits are then
-    held against forward on the extended tokens: both bf16 paths round the
-    same function at other points, so the decode path must be no further from
-    the float32 forward (on the same bf16-valued weights) than twice the bf16
-    forward is. Returns the step times and the launch counts of the run.
+
+def decode_full_width(torch, arch: str, prompt: int, steps: int,
+                      max_seq: int, seed: int, frontend: int = 0) -> dict:
+    """``prefill`` over a prompt, then greedy ``decode_step``s, of one
+    architecture at its published config in bf16, its weights drawn from a
+    seed and cast group by group (so no float32 tree of the whole model is
+    held). The first ``frontend``
+    positions of the prompt come from a frontend stub drawn from the seed.
+
+    Every flash and SSD call of the prefill and every decode_attention call
+    of the first and last step is held, on the inputs the model gave it,
+    against the plain version in float32 (gate BF16_REL_L2), and its
+    arguments are checked; the launch counters must equal the calls the
+    config makes. The decoded logits are then held against forward on the
+    extended tokens: both bf16 paths round the same function at other
+    points, so the decode path must be no further from the float32 forward
+    (on the same bf16-valued weights) than twice the bf16 forward is. A
+    profiled step must run the bf16 decode kernel once per attention layer
+    and a profiled prefill the wgmma flash instance of its head dim once per
+    attention layer, by the profiler's kernel names. Returns the prefill
+    time, the step times and the launch counts of the run.
     """
     from repro_torch.configs import get_config
-    from repro_torch.convert import to_compute_dtype
+    from repro_torch.convert import init_compute_params
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
@@ -981,13 +1126,21 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
 
     cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = to_compute_dtype(M.init_params(gen, cfg, "cuda"),
-                              M.compute_dtype(cfg))
+    params = init_compute_params(gen, cfg, "cuda", M.compute_dtype(cfg))
+    torch.cuda.empty_cache()
     tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
                            device="cuda", dtype=torch.int32)
-    kinds = [kind for _ in range(M.num_groups(cfg))
-             for kind in M.group_pattern(cfg)]
-    attn_layers = sum(kind != "mamba" for kind in kinds)
+    fe = (torch.randn((1, frontend, cfg.frontend_dim), generator=gen,
+                      device="cuda") if frontend else None)
+    prefill_calls = expected_calls(torch, M, cfg, prompt)
+    # the decode-attention calls of a step, in order
+    dcfgs = []
+    for _ in range(M.num_groups(cfg)):
+        if cfg.shared_attn_every:
+            dcfgs.append(M.shared_attn_cfg_for(cfg))
+        dcfgs += [M.attn_cfg_for(cfg, kind) for kind in M.group_pattern(cfg)
+                  if kind != "mamba"]
+    attn_layers = len(dcfgs)
     calls = []
     real = ops.decode_attention
 
@@ -1002,19 +1155,29 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
 
     with torch.inference_mode():
         cache = M.init_cache(cfg, 1, max_seq, torch.bfloat16, "cuda")
-        reset_flash_counters(fa)
-        reset_ssd_counters(ssd_mod)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = M.prefill(params, cfg, tokens, cache)
+        M.prefill(params, cfg, tokens, cache, frontend=fe)
         torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        prefill_launches = {"flash_attention": fa.launches,
-                            "ssd": ssd_mod.launches}
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        # the counted prefill, tapped (it writes the same cache again)
+        reset_flash_counters(fa)
+        reset_ssd_counters(ssd_mod)
+        with tap_kernels() as pcalls:
+            logits, cache = M.prefill(params, cfg, tokens, cache, frontend=fe)
+        check_taps(f"{arch} prefill of {prompt}", pcalls, prefill_calls,
+                   "decode")
+        launches = {"flash_attention": fa.launches, "ssd": ssd_mod.launches}
+        want_l = {k: sum(c[0] == name for c in prefill_calls)
+                  for k, name in (("flash_attention", "flash"),
+                                  ("ssd", "ssd"))}
+        if launches != want_l:
+            raise AssertionError(f"{arch} prefill: launches {launches}, "
+                                 f"expected {want_l}")
         flash_by_kernel(fa, f"{arch} prefill of {prompt}")
         ssd_by_kernel(ssd_mod, f"{arch} prefill of {prompt}")
         nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-        del logits
+        del logits, pcalls
         fed, outs, step_ms = [], [], []
         dec.launches = 0
         dec.kernel_launches = dict.fromkeys(dec.kernel_launches, 0)
@@ -1038,13 +1201,10 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
             outs.append(logits[:, 0])
             nxt = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
             if tap:
-                hd = cfg.resolved_head_dim
-                expect = [((1, cfg.num_heads, hd),
-                           (1, max_seq, cfg.num_kv_heads, hd),
-                           torch.bfloat16, torch.bfloat16,
-                           cfg.local_window if kind == "local" else None,
-                           cfg.attn_logit_softcap, [prompt + i])
-                          for kind in kinds if kind != "mamba"]
+                expect = [((1, a.num_heads, a.head_dim),
+                           (1, max_seq, a.num_kv_heads, a.head_dim),
+                           torch.bfloat16, torch.bfloat16, a.window,
+                           a.logit_softcap, [prompt + i]) for a in dcfgs]
                 seen = [c[0] for c in calls]
                 if seen != expect:
                     raise AssertionError(f"{arch} step {i}: decode calls "
@@ -1054,13 +1214,13 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
                     f"{len(calls)} decode_attention calls as the config sets "
                     f"them; the worst relative L2 err against the float32 "
                     f"plain version on the same inputs {worst} (gate "
-                    f"{BF16_REL_L2})")
+                    f"{BF16_REL_L2}, margin {BF16_REL_L2 / worst})")
                 if worst > BF16_REL_L2:
                     raise AssertionError(f"{arch}: a decode call off by {worst}")
-        launches = dec.launches
+        launches["decode_attention"] = dec.launches
         by_kernel = dict(dec.kernel_launches)
-        if launches != steps * attn_layers:
-            raise AssertionError(f"{arch}: {launches} decode_attention "
+        if dec.launches != steps * attn_layers:
+            raise AssertionError(f"{arch}: {dec.launches} decode_attention "
                                  f"launches, expected {steps} steps x "
                                  f"{attn_layers} attention layers")
         dec_logits = torch.cat(outs)                       # [steps, V]
@@ -1068,11 +1228,13 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
             raise AssertionError(f"{arch}: non-finite decode logits")
         ext = torch.cat([tokens] + fed, dim=1)
         # the decoded positions only (a clone lets the full logits go)
-        fwd = M.forward(params, cfg, ext)[0][0, prompt:].clone()
+        fwd = M.forward(params, cfg, ext, frontend=fe)[0][0, prompt:].clone()
+        torch.cuda.empty_cache()
         p32 = M.tree_map(lambda t: t.float(), params)
         want = M.forward(p32, dataclasses.replace(cfg, dtype="float32"), ext,
-                         "torch", "torch")[0][0, prompt:].clone()
+                         "torch", "torch", frontend=fe)[0][0, prompt:].clone()
         del p32
+        torch.cuda.empty_cache()
     kern = rel_l2(dec_logits, want)
     plain = rel_l2(fwd, want)
     agree = int((dec_logits.argmax(-1) == fwd.argmax(-1)).sum())
@@ -1086,18 +1248,26 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
         raise AssertionError(f"{arch}: decoded logits off by {kern}, above "
                              f"{gate}")
     med = statistics.median(step_ms)
-    log(f"[decode] {arch} bf16: prefill of {prompt} tokens {prefill_s * 1e3} "
-        f"ms (launches {prefill_launches}); median {med} ms per decoded token "
-        f"over {len(step_ms)} untapped steps (min {min(step_ms)}, max "
-        f"{max(step_ms)}); decode_attention launches {launches} = {steps} x "
-        f"{attn_layers}")
+    log(f"[decode] {arch} bf16 ({cfg.num_layers} layers): prefill of {prompt} "
+        f"tokens {prefill_ms} ms; median {med} ms per decoded token over "
+        f"{len(step_ms)} untapped steps (min {min(step_ms)}, max "
+        f"{max(step_ms)}); launches {launches} (decode_attention {steps} x "
+        f"{attn_layers})")
     step = lambda: M.decode_step(params, cfg, nxt, cache, pos)
     rows = profile_fn(torch, f"{arch} decode_step at pos {prompt + steps - 1}",
                       step)
     check_decode_launches(rows, by_kernel, attn_layers, steps, arch)
+    heads = {}
+    for c in prefill_calls:
+        if c[0] == "flash":
+            heads[c[1][3]] = heads.get(c[1][3], 0) + 1
+    rows = profile_fn(torch, f"{arch} prefill of {prompt}",
+                      lambda: M.prefill(params, cfg, tokens, cache,
+                                        frontend=fe))
+    check_flash_launches(rows, heads, f"{arch} prefill")
     del params, cache, dec_logits, fwd, want
     torch.cuda.empty_cache()
-    return dict(launches=launches, ms_per_token=med)
+    return dict(launches=launches, ms_per_token=med, prefill_ms=prefill_ms)
 
 
 #: the decode runs at full width: (arch, prompt, decode steps, cache rows,
@@ -1116,7 +1286,52 @@ def decode(torch, gen):
             for arch, prompt, steps, max_seq, seed in DECODE_FULL_WIDTH}
     log("[decode] median ms per decoded token: " + ", ".join(
         f"{arch} {r['ms_per_token']}" for arch, r in runs.items()))
-    return headline, sum(r["launches"] for r in runs.values())
+    return headline, sum_launches(runs.values())
+
+
+def sum_launches(runs) -> dict:
+    out = {}
+    for r in runs:
+        for name, n in r["launches"].items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the remaining architectures at full width
+# ---------------------------------------------------------------------------
+
+
+#: the decode kernel at the new architectures' head dims, pos 1040 of a
+#: 1056-row cache, with phase 7's gates
+DECODE_ARCH_CASES = [
+    ("phi-3-vision", 1056, 32, 32, 96, None, None, [1040]),
+    ("zamba2-2.7b shared", 1056, 32, 32, 160, None, None, [1040]),
+]
+
+#: (arch, prompt, frontend positions, decode steps, cache rows, seed), each
+#: whole: zamba2-2.7b's 54 mamba blocks and 9 shared-block applications,
+#: phi-3-vision's 32 layers with 576 patch embeddings, musicgen-large's 48
+#: with 256 audio frames, minitron-8b's 32
+ARCH_FULL_WIDTH = [
+    ("zamba2-2.7b", 1024, 0, 16, 1056, 9),
+    ("phi-3-vision-4.2b", 1024, 576, 16, 1056, 10),
+    ("musicgen-large", 1024, 256, 16, 1056, 11),
+    ("minitron-8b", 1024, 0, 16, 1056, 12),
+]
+
+
+def archs_phase(torch, gen) -> dict:
+    check_decode_kernel(torch, gen, DECODE_ARCH_CASES)
+    runs = {arch: decode_full_width(torch, arch, prompt=prompt, steps=steps,
+                                    max_seq=max_seq, seed=seed,
+                                    frontend=frontend)
+            for arch, prompt, frontend, steps, max_seq, seed
+            in ARCH_FULL_WIDTH}
+    log("[archs] prefill ms and median ms per decoded token: " + ", ".join(
+        f"{arch} {r['prefill_ms']} / {r['ms_per_token']}"
+        for arch, r in runs.items()))
+    return sum_launches(runs.values())
 
 
 # ---------------------------------------------------------------------------
@@ -1611,17 +1826,24 @@ def main() -> int:
     launches = serve(torch)
 
     # 7. decode
-    dec_headline, launches["decode_attention"] = decode(torch, gen)
+    dec_headline, dec_launches = decode(torch, gen)
 
     # 8. MoE
     t_moe = time.perf_counter()
     gmm_headline, moe_launches = moe_phase(torch, gen)
+
+    # 9. the remaining architectures at full width
+    t_archs = time.perf_counter()
+    arch_launches = archs_phase(torch, gen)
     log(f"[time] phases 1-7 {t_moe - t_start:.1f} s, phase 8 (MoE) "
-        f"{time.perf_counter() - t_moe:.1f} s")
-    log(f"[moe] launches on the MoE path: {moe_launches}; before it: "
-        f"{launches}")
-    for name, n in moe_launches.items():
-        launches[name] = launches.get(name, 0) + n
+        f"{t_archs - t_moe:.1f} s, phase 9 (archs) "
+        f"{time.perf_counter() - t_archs:.1f} s")
+    log(f"[launches] serving {launches}, decode {dec_launches}, MoE "
+        f"{moe_launches}, archs {arch_launches}")
+    launches = sum_launches([{"launches": launches},
+                             {"launches": dec_launches},
+                             {"launches": moe_launches},
+                             {"launches": arch_launches}])
 
     kernels = [
         dict(name="flash_attention", route="cuda",

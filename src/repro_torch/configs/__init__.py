@@ -1,6 +1,6 @@
 """Architecture configuration system (copy of the JAX package's configs).
 
-One module per architecture of this slice; each exposes ``CONFIG`` (the exact
+One module per architecture; each exposes ``CONFIG`` (the exact
 published configuration) and the registry maps ``--arch <id>`` to it.
 ``smoke_config()`` returns a reduced same-family config for CPU tests.
 
@@ -83,27 +83,24 @@ class ArchConfig:
         return self.d_model // self.num_heads if self.num_heads else 0
 
 
-#: arch-id -> module name (the architectures of the serving and MoE slices)
+#: arch-id -> module name
 _REGISTRY = {
+    "musicgen-large": "musicgen_large",
     "gemma2-2b": "gemma2_2b",
     "qwen1.5-4b": "qwen1_5_4b",
+    "minitron-8b": "minitron_8b",
     "gemma-2b": "gemma_2b",
-    "mamba2-130m": "mamba2_130m",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
     "qwen3-moe-235b-a22b": "qwen3_moe",
+    "zamba2-2.7b": "zamba2_2_7b",
+    "phi-3-vision-4.2b": "phi3_vision",
+    "mamba2-130m": "mamba2_130m",
 }
-
-#: architectures the JAX package has and the port does not have yet
-_LATER = ("musicgen-large", "minitron-8b", "zamba2-2.7b", "phi-3-vision-4.2b")
 
 ARCH_IDS = tuple(_REGISTRY)
 
 
 def get_config(arch: str) -> ArchConfig:
-    if arch in _LATER:
-        raise KeyError(f"arch {arch!r} is not ported yet: it comes with the "
-                       f"remaining-architectures slice; ported: "
-                       f"{sorted(_REGISTRY)}")
     if arch not in _REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_REGISTRY)}")
     mod = importlib.import_module(f"repro_torch.configs.{_REGISTRY[arch]}")

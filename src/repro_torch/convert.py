@@ -17,17 +17,20 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .models.model import tree_map
+from .configs import ArchConfig
+from .models import model as M
 
 #: leaves that every apply function casts to the compute dtype before use
 #: (weights and biases of the products, the MoE router, the embedding
-#: table, the conv); norm scales and the SSM's A_log, D and dt_bias stay
-#: float32
+#: table, the frontend projection, the conv), under whichever subtree they
+#: lie (``blocks``, zamba2's ``shared_attn``, ``frontend``); norm scales
+#: and the SSM's A_log, D and dt_bias stay float32
 COMPUTE_LEAVES = frozenset({
     "wq", "wk", "wv", "wo", "bq", "bk", "bv",          # attention
     "wi", "wg",                                        # mlp and experts ("wo" above)
     "router",                                          # moe
     "table", "unembed",                                # embedding
+    "proj",                                            # frontend stub
     "in_proj", "out_proj", "conv_w", "conv_b",         # mamba2
 })
 
@@ -38,7 +41,7 @@ def from_jax_params(tree: dict, device: str | torch.device = "cuda",
     With ``dtype``, the leaves in ``COMPUTE_LEAVES`` are cast to it once:
     the same cast the forward pass makes on every call."""
     dev = resolve_device(device)
-    params = tree_map(lambda a: _tensor(np.array(a)).to(dev), tree)
+    params = M.tree_map(lambda a: _tensor(np.array(a)).to(dev), tree)
     return params if dtype is None else to_compute_dtype(params, dtype)
 
 
@@ -62,3 +65,14 @@ def to_compute_dtype(params: dict, dtype: torch.dtype) -> dict:
                 out[name] = leaf
         return out
     return walk(params)
+
+
+def init_compute_params(gen: torch.Generator, cfg: ArchConfig,
+                        device: str | torch.device,
+                        dtype: torch.dtype) -> dict:
+    """``init_params``' draws with the leaves in ``COMPUTE_LEAVES`` cast to
+    ``dtype`` as each layer group is drawn, so no more than one group is
+    held in float32 at a time (how a full-width model is built on the
+    card)."""
+    return M.assemble_params(to_compute_dtype(part, dtype)
+                             for part in M.init_parts(gen, cfg, device))

@@ -115,6 +115,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         f, i, i, f,                 # scale, causal, window (<=0: none), softcap (<=0: none)
         p]                          # cudaStream_t
     lib.repro_flash_attention_fwd.restype = i
+    lib.repro_flash_wgmma_stages.argtypes = [i]     # head_dim
+    lib.repro_flash_wgmma_stages.restype = i
     lib.repro_ssd_fwd.argtypes = [
         p, p, p, p, p, p,           # x, dt, A, B, C, D
         p, p,                       # y, final state

@@ -47,9 +47,11 @@
 //    l per row, reduced over the 4 lanes of a row only), then O += P V with P
 //    rebuilt in registers as bf16 A fragments (probabilities rounded to bf16
 //    before the product, as the plain version rounds them) and V through
-//    ldmatrix.trans. At head_dim 256 a second set of 4 warps owns the other
-//    half of O's columns (and computes the same S), so O stays at 64
-//    registers a thread. wgmma is not used: it needs 64-row tiles, four times
+//    ldmatrix.trans. Above head_dim 128 (160, 256) a second set of 4 warps
+//    owns the other half of O's columns (and computes the same S), so O
+//    stays at 40 or 64 registers a thread. Every head dim is a multiple of
+//    16, so the k-steps of S and the 16-column V loads never run past a row
+//    (96: 6 k-steps, 12 n-tiles; 160: 10 k-steps, two halves of 10). wgmma is not used: it needs 64-row tiles, four times
 //    the 16 rows a group fills, and its rate buys nothing here.
 //  * Merges: the 4 key slices merge their (m, l, O) through shared memory at
 //    the end of the block's run, in slice order. With one split the block
@@ -70,7 +72,8 @@
 // kernels decode_split_kernel and decode_combine_kernel, which keep fp32
 // products (tensor cores in TF32 or bf16 would miss the fp32 tolerance of
 // 3e-5). Inside a block each warp takes keys in turn; a key's row is spread
-// over LPK lanes with 16-byte loads (8-byte at a group of 16, see ChunkOf),
+// over LPK lanes in chunks of up to 16 bytes (8 at a group of 16; see
+// SplitGeom, which also takes head dims 96 and 160),
 // U keys per lane group are loaded before any is used, the G scores are
 // reduced across the LPK lanes with shuffles, and the lane keeps running
 // (m, l, acc) for its share of the columns. The key slots of a warp, then the
@@ -108,10 +111,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The values of a 16-byte chunk (eight bf16 or four float) or of an 8-byte
-// chunk (four bf16 or two float), as floats.
+// The values of a 16-, 8-, 4- or 2-byte chunk of a row, as floats.
 template <typename T> __device__ __forceinline__ void unpack(const uint4& u, float* f);
 template <typename T> __device__ __forceinline__ void unpack(const uint2& u, float* f);
+template <typename T> __device__ __forceinline__ void unpack(const uint32_t& u, float* f);
+template <typename T> __device__ __forceinline__ void unpack(const unsigned short& u, float* f);
 __device__ __forceinline__ void unpack_bf16_pair(uint32_t w, float* f) {
   f[0] = __uint_as_float(w << 16);  // the low half holds the lower index
   f[1] = __uint_as_float(w & 0xffff0000u);
@@ -136,14 +140,48 @@ template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint2& u
   unpack_bf16_pair(u.x, f);
   unpack_bf16_pair(u.y, f + 2);
 }
+template <> __device__ __forceinline__ void unpack<float>(const uint32_t& u, float* f) {
+  f[0] = __uint_as_float(u);
+}
+template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint32_t& u, float* f) {
+  unpack_bf16_pair(u, f);
+}
+template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const unsigned short& u, float* f) {
+  f[0] = __uint_as_float(static_cast<uint32_t>(u) << 16);
+}
 
-// A group of 16 query heads keeps 16 scores, maxima, sums and accumulator
-// rows a lane: with 16-byte chunks (8 bf16 columns a lane at head_dim 128)
-// that is over 300 registers and spills. So G = 16 reads 8-byte chunks,
-// which spreads a row over twice the lanes and halves each lane's columns,
-// and keeps 2 keys in flight a lane group instead of 4.
-template <int G> struct ChunkOf { using type = uint4; };
-template <> struct ChunkOf<16> { using type = uint2; };
+template <int BYTES> struct ChunkT;
+template <> struct ChunkT<16> { using type = uint4; };
+template <> struct ChunkT<8> { using type = uint2; };
+template <> struct ChunkT<4> { using type = uint32_t; };
+template <> struct ChunkT<2> { using type = unsigned short; };
+
+// How the split kernel spreads a K or V row of H elements of TKV over the
+// lanes: LPK lanes a key (a power of two, so the score reduces by xor
+// shuffles and a warp takes 32 / LPK keys), EPL consecutive elements a
+// lane, read in chunks of VEC elements. Rows of 16-byte chunks spread over
+// as many lanes as they have chunks, up to 32. A group of 16 query heads
+// keeps 16 scores, maxima, sums and accumulator rows a lane: with 16-byte
+// chunks (8 bf16 columns a lane at head_dim 128) that is over 300 registers
+// and spills, so G = 16 reads 8-byte chunks, which spreads a row over twice
+// the lanes and halves each lane's columns (and keeps 2 keys in flight a
+// lane group instead of 4). Where the chunk count is not a power of two
+// (head dims 96 and 160: 3 or 5 times a power of two), the row takes all
+// 32 lanes, H / 32 elements each (3 or 5), read in the widest chunk that
+// divides them: single elements.
+template <typename TKV, int H, int G>
+struct SplitGeom {
+  static constexpr int MAX_VEC = (G >= 16 ? 8 : 16) / static_cast<int>(sizeof(TKV));
+  static constexpr int NCH = H / MAX_VEC;
+  static constexpr bool POW2 = H % MAX_VEC == 0 && (NCH & (NCH - 1)) == 0;
+  static constexpr int LPK = POW2 && NCH < 32 ? NCH : 32;
+  static constexpr int EPL = H / LPK;
+  static constexpr int VEC = EPL % MAX_VEC == 0 ? MAX_VEC
+                             : EPL % 4 == 0 && MAX_VEC >= 4 ? 4
+                             : EPL % 2 == 0 && MAX_VEC >= 2 ? 2 : 1;
+  using Chunk = typename ChunkT<VEC * static_cast<int>(sizeof(TKV))>::type;
+  static_assert(H % LPK == 0 && EPL % VEC == 0, "head_dim must fill whole chunks");
+};
 
 // weight of a partial with max m in a merge whose max is m_new
 __device__ __forceinline__ float rescale(float m, float m_new) {
@@ -152,15 +190,15 @@ __device__ __forceinline__ float rescale(float m, float m_new) {
 
 template <typename TQ, typename TKV, int H, int G>
 __global__ void __launch_bounds__(NT) decode_split_kernel(Args a) {
-  using Chunk = typename ChunkOf<G>::type;
-  constexpr int VEC = sizeof(Chunk) / sizeof(TKV);     // elements per chunk
-  constexpr int LPK = H / VEC < 32 ? H / VEC : 32;     // lanes per key row
-  constexpr int EPL = H / LPK;                         // elements per lane
+  using Geom = SplitGeom<TKV, H, G>;
+  using Chunk = typename Geom::Chunk;
+  constexpr int VEC = Geom::VEC;                       // elements per chunk
+  constexpr int LPK = Geom::LPK;                       // lanes per key row
+  constexpr int EPL = Geom::EPL;                       // elements per lane
   constexpr int CH = EPL / VEC;                        // chunks per lane
   constexpr int KPW = 32 / LPK;                        // keys a warp takes at once
   constexpr int U = G >= 16 ? 2 : sizeof(TKV) == 2 ? 4 : 2;  // keys in flight per lane group
   constexpr int STEP = NW * KPW;                       // keys the block takes at once
-  static_assert(H % VEC == 0 && EPL % VEC == 0, "head_dim must fill whole chunks");
   __shared__ float sm_acc[NW][G][H];
   __shared__ float sm_m[NW][G];
   __shared__ float sm_l[NW][G];
@@ -405,7 +443,9 @@ cudaError_t by_head(int H, int G, const Args& a) {
     case 16: return by_group<TQ, TKV, 16>(G, a);
     case 32: return by_group<TQ, TKV, 32>(G, a);
     case 64: return by_group<TQ, TKV, 64>(G, a);
+    case 96: return by_group<TQ, TKV, 96>(G, a);
     case 128: return by_group<TQ, TKV, 128>(G, a);
+    case 160: return by_group<TQ, TKV, 160>(G, a);
     case 256: return by_group<TQ, TKV, 256>(G, a);
     default: return cudaErrorInvalidValue;
   }
@@ -454,7 +494,7 @@ struct MmaArgs {
 // aligned.
 template <int H>
 struct Mma {
-  static constexpr int CS = H > 128 ? 2 : 1;  // column halves of O (head_dim 256)
+  static constexpr int CS = H > 128 ? 2 : 1;  // column halves of O (head_dim 160, 256)
   static constexpr int THREADS = 32 * KS * CS;
   static constexpr int HC = H / CS;           // O's columns per warp
   static constexpr int RS = H + 8;            // row stride, elements
@@ -904,7 +944,7 @@ extern "C" int repro_decode_attention_fwd(const void* q, const void* k, const vo
 }
 
 // bfloat16 q [B,N,H], out [B,N,H] and k/v [B,S,K,H]; pos [B] int32 on the
-// device, each in [0, S); N/K <= 16, head_dim 16, 32, 64, 128 or 256. With
+// device, each in [0, S); N/K <= 16, head_dim 16, 32, 64, 96, 128, 160 or 256. With
 // splits > 1 (at most 132, and splits * (128 + 4 * (N/K) * H) bytes at most
 // 200 KB, what the merge stages): part, float32 scratch of B*K*splits*(N/K)*(H+2)
 // elements, and tickets, B*K int32 that are 0 before the call and are 0 again
@@ -929,7 +969,9 @@ extern "C" int repro_decode_attention_mma_fwd(const void* q, const void* k, cons
     case 16: return launch_mma<16>(a, st);
     case 32: return launch_mma<32>(a, st);
     case 64: return launch_mma<64>(a, st);
+    case 96: return launch_mma<96>(a, st);
     case 128: return launch_mma<128>(a, st);
+    case 160: return launch_mma<160>(a, st);
     case 256: return launch_mma<256>(a, st);
     default: return cudaErrorInvalidValue;
   }

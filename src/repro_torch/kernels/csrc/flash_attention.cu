@@ -21,8 +21,10 @@
 //    O += P V takes P from the logits' registers as bf16 A fragments (the
 //    S accumulator layout is the A-fragment layout) and V through the
 //    descriptor's transpose bit. Tiles are stored as TMA's 128/64/32-byte
-//    swizzle writes them (the swizzle width is the row's bytes, up to 128),
-//    so no thread copies or transposes data. The softmax runs in log2
+//    swizzle writes them, in column chunks of 64 elements (128-byte rows)
+//    where head_dim is a multiple of 64, else of 32 (64-byte rows: head
+//    dims 32, 96 and 160) or 16, so no thread copies or transposes data and
+//    no head dim is padded. The softmax runs in log2
 //    units with ex2; the softcap is c * (1 - 2 / (1 + 2^(2 log2(e) x / c)))
 //    with ex2 and rcp (exact to float rounding at both ends, where
 //    tanh.approx's 2^-11 would move a logit near the cap by ~0.02); the
@@ -32,7 +34,10 @@
 //    query tiles first.
 //  * float32: CUDA-core FMAs on 32x32 tiles held in shared memory as fp32,
 //    with each thread's share of the accumulator in registers, so float32
-//    stays float32 (tensor cores would round it to TF32).
+//    stays float32 (tensor cores would round it to TF32). Each output column
+//    belongs to NT / H threads (rows apart); where H does not divide the 256
+//    threads (96, 160) the threads past (NT / H) * H own no accumulator and
+//    only help with the loads, the scores and the softmax.
 //
 // What bounds it. At the main path's shapes (gemma2-2b: head_dim 256,
 // S = 1024..8192) attention is operation-bound: ~4*S*S/2*H flops per head
@@ -101,10 +106,11 @@ __global__ void __launch_bounds__(NT) flash_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ out, int Sq, int Sk, int N, int K, float scale, bool causal,
     int window, float softcap) {
-  static_assert(NT % H == 0, "head_dim must divide the thread count");
   using L = Layout<H>;
   constexpr int RS = NT / H;        // rows between one thread's accumulators
-  constexpr int ACC = BQ * H / NT;  // accumulators per thread
+  constexpr int OWNERS = RS * H;    // threads that own accumulators
+  constexpr int ACC = BQ / RS;      // accumulators per owner
+  static_assert(RS >= 1 && BQ % RS == 0, "a column's rows split evenly");
   extern __shared__ float smem[];
   float* qs = smem + L::q;
   float* ks = smem + L::k;
@@ -134,7 +140,8 @@ __global__ void __launch_bounds__(NT) flash_f32_kernel(
     ms[tid] = -INFINITY;
     ls[tid] = 0.f;
   }
-  const int d = tid % H;   // this thread's output column
+  const bool owner = tid < OWNERS;
+  const int d = tid % H;   // an owner's output column
   const int r0 = tid / H;  // and its first row; rows r0 + i * RS
   float acc[ACC];
 #pragma unroll
@@ -215,16 +222,19 @@ __global__ void __launch_bounds__(NT) flash_f32_kernel(
     __syncthreads();
 
     // acc = acc * alpha + P V
+    if (owner) {
 #pragma unroll
-    for (int i = 0; i < ACC; ++i) acc[i] *= as[r0 + i * RS];
+      for (int i = 0; i < ACC; ++i) acc[i] *= as[r0 + i * RS];
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float vv = vs[c * H + d];
+      for (int c = 0; c < BK; ++c) {
+        const float vv = vs[c * H + d];
 #pragma unroll
-      for (int i = 0; i < ACC; ++i) acc[i] = fmaf(ps[(r0 + i * RS) * L::PS + c], vv, acc[i]);
+        for (int i = 0; i < ACC; ++i) acc[i] = fmaf(ps[(r0 + i * RS) * L::PS + c], vv, acc[i]);
+      }
     }
   }
   __syncthreads();
+  if (!owner) return;
 
 #pragma unroll
   for (int i = 0; i < ACC; ++i) {
@@ -248,11 +258,14 @@ constexpr int SMEM_MAX = 232448;  // what a block may ask for on sm_90
 
 // Tiles and shared memory of the wgmma kernel at head_dim H. A Q, K or V
 // tile is NC column chunks of CW columns (RB = 2 * CW bytes a row, the
-// swizzle width), each chunk a [rows][CW] block as one TMA box writes it.
+// swizzle width), each chunk a [rows][CW] block as one TMA box writes it:
+// 64 columns (128-byte swizzle) where they divide H, else 32 (64-byte: H =
+// 32, 96, 160) or 16. A QK^T k-step of 16 columns never crosses a chunk,
+// and PV's B descriptor walks the chunks by its leading byte offset.
 template <int H>
 struct WgCfg {
   static constexpr int BK = H == 256 ? 64 : 128;   // keys per tile
-  static constexpr int CW = H < 64 ? H : 64;
+  static constexpr int CW = H % 64 == 0 ? 64 : H % 32 == 0 ? 32 : 16;
   static constexpr int RB = 2 * CW;
   static constexpr int NC = H / CW;
   static constexpr int LAYOUT = repro::hopper::desc_layout(RB);
@@ -559,6 +572,20 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
 
 }  // namespace
 
+// stages of the bf16 kernel's K/V ring at head_dim H (0: no such kernel)
+extern "C" int repro_flash_wgmma_stages(int H) {
+  switch (H) {
+    case 16: return WgCfg<16>::STAGES;
+    case 32: return WgCfg<32>::STAGES;
+    case 64: return WgCfg<64>::STAGES;
+    case 96: return WgCfg<96>::STAGES;
+    case 128: return WgCfg<128>::STAGES;
+    case 160: return WgCfg<160>::STAGES;
+    case 256: return WgCfg<256>::STAGES;
+    default: return 0;
+  }
+}
+
 // q [B,Sq,N,H], k/v [B,Sk,K,H], out [B,Sq,N,H], all contiguous, one dtype,
 // 16-byte aligned. window <= 0 means no window, softcap <= 0 no softcap.
 // Returns the launch's cudaError_t; the kernel runs on `stream`.
@@ -574,7 +601,9 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
     case 16: return launch<16>(dtype, q, k, v, out, B, Sq, Sk, N, K, scale, causal, window, softcap, s);
     case 32: return launch<32>(dtype, q, k, v, out, B, Sq, Sk, N, K, scale, causal, window, softcap, s);
     case 64: return launch<64>(dtype, q, k, v, out, B, Sq, Sk, N, K, scale, causal, window, softcap, s);
+    case 96: return launch<96>(dtype, q, k, v, out, B, Sq, Sk, N, K, scale, causal, window, softcap, s);
     case 128: return launch<128>(dtype, q, k, v, out, B, Sq, Sk, N, K, scale, causal, window, softcap, s);
+    case 160: return launch<160>(dtype, q, k, v, out, B, Sq, Sk, N, K, scale, causal, window, softcap, s);
     case 256: return launch<256>(dtype, q, k, v, out, B, Sq, Sk, N, K, scale, causal, window, softcap, s);
     default: return cudaErrorInvalidValue;
   }

@@ -33,7 +33,7 @@ from . import build
 
 #: the JAX package's key tile: the padding of the plain version in ``ops``
 DEFAULT_BLOCK_K = 256
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 160, 256)
 GROUPS = (1, 2, 4, 8, 16)
 #: the fp32 kernel takes a group of 16 up to this head_dim (256 would need
 #: 64 KB of static shared memory a block); the mma kernel takes every head_dim
@@ -83,9 +83,10 @@ def kernel_for(q_dtype: torch.dtype, cache_dtype: torch.dtype) -> str:
 
 
 def mma_blocks_per_sm(head_dim: int) -> int:
-    """Blocks of the mma kernel an SM holds at once: one at head_dim 256
-    (over 200 registers a thread, and a ring of 3 stages of 66 KB), two
-    below (a ring of 3 stages of 35 KB at head_dim 128)."""
+    """Blocks of the mma kernel an SM holds at once: one above head_dim 128
+    (256 threads: two sets of 4 warps, each holding half of O's columns;
+    a ring of 3 stages of 66 KB at 256, of 42 KB at 160), two at 128 and
+    below (128 threads; a ring of 3 stages of 35 KB at 128, 26 KB at 96)."""
     return 1 if head_dim > 128 else 2
 
 

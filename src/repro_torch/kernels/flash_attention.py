@@ -20,7 +20,7 @@ from . import build
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 160, 256)
 #: head dims at which bfloat16 runs the wgmma kernel (all of HEAD_DIMS)
 WGMMA_HEAD_DIMS = HEAD_DIMS
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,6 +39,14 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.float32 and head_dim in HEAD_DIMS:
         return "fp32"
     raise ValueError(f"no flash kernel for {dtype} at head_dim {head_dim}")
+
+
+def wgmma_stages(head_dim: int) -> int:
+    """Stages of the bfloat16 kernel's K/V ring at ``head_dim``: as many
+    K and V tiles as fit beside Q in shared memory, at most 4 (2 at 160)."""
+    if head_dim not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} not in {WGMMA_HEAD_DIMS}")
+    return build.load().repro_flash_wgmma_stages(head_dim)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Multi-head attention: MHA / GQA / MQA with RoPE, logit softcap,
-sliding-window (local) masking and optional QKV bias, and the KV cache
-(port of ``repro/models/attention.py``: ``attend_full``, ``attend_prefill``,
+"""Multi-head attention: MHA / GQA / MQA with RoPE (or none, under absolute
+positions), logit softcap, sliding-window (local) masking, optional QKV
+bias, input and output widths other than d_model (zamba2's shared block),
+and the KV cache (port of ``repro/models/attention.py``: ``attend_full``, ``attend_prefill``,
 ``attend_decode``, the cache functions and ``_project_qkv``).
 
 ``impl="kernel"`` goes through ``kernels.ops`` (``flash_attention`` for a
@@ -39,23 +40,33 @@ class AttnConfig:
     num_kv_heads: int
     head_dim: int
     qkv_bias: bool = False
-    rope_theta: Optional[float] = 10000.0
+    rope_theta: Optional[float] = 10000.0   # None = no RoPE (absolute pos)
     logit_softcap: Optional[float] = None
     window: Optional[int] = None            # sliding window (local layers)
     scale: Optional[float] = None           # default head_dim ** -0.5
+    q_in_dim: Optional[int] = None          # != d_model for zamba2's concat in
+    out_dim: Optional[int] = None           # output projection width
 
     @property
     def resolved_scale(self) -> float:
         return self.scale if self.scale is not None else self.head_dim ** -0.5
 
+    @property
+    def in_dim(self) -> int:
+        return self.q_in_dim or self.d_model
+
+    @property
+    def o_dim(self) -> int:
+        return self.out_dim or self.d_model
+
 
 def attn_init(gen: torch.Generator, cfg: AttnConfig) -> dict:
-    d, h = cfg.d_model, cfg.head_dim
+    d, h = cfg.in_dim, cfg.head_dim
     p = {
         "wq": dense_init(gen, (d, cfg.num_heads, h), d),
         "wk": dense_init(gen, (d, cfg.num_kv_heads, h), d),
         "wv": dense_init(gen, (d, cfg.num_kv_heads, h), d),
-        "wo": dense_init(gen, (cfg.num_heads, h, cfg.d_model),
+        "wo": dense_init(gen, (cfg.num_heads, h, cfg.o_dim),
                          cfg.num_heads * h),
     }
     if cfg.qkv_bias:

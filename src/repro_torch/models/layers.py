@@ -1,5 +1,5 @@
-"""Shared building blocks: norms, MLPs, embeddings, rotary embeddings
-(port of ``repro/models/layers.py``).
+"""Shared building blocks: norms, MLPs, embeddings, rotary and sinusoidal
+position embeddings (port of ``repro/models/layers.py``).
 
 Conventions
 -----------
@@ -149,6 +149,18 @@ def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def sinusoidal_pos(positions: Tensor, d_model: int,
+                   dtype: torch.dtype = torch.bfloat16) -> Tensor:
+    """Sinusoidal absolute position embedding [B, S] -> [B, S, D]
+    (MusicGen's): [sin | cos] of the float32 angles, cast last."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 def softcap(x: Tensor, cap: Optional[float]) -> Tensor:

@@ -1,6 +1,15 @@
-"""The LM: composes attention, MoE and SSD blocks into an architecture
-(port of ``repro/models/model.py``: config plumbing, ``init_params``,
-``forward``, the stacked decode cache, ``prefill`` and ``decode_step``).
+"""The LM: composes attention, MoE and SSD blocks into any of the ten
+architectures (port of ``repro/models/model.py``: config plumbing,
+``init_params``, ``forward``, the stacked decode cache, ``prefill`` and
+``decode_step``).
+
+Beside the per-layer blocks: zamba2's shared attention block (one set of
+weights, ``params["shared_attn"]``, applied over ``concat(x, x0)`` at the
+head of every group of six mamba blocks, with a KV cache of its own per
+group, ``cache[...]["shared"]``), the frontend stub of the vision and audio
+models (``frontend`` embeddings projected by ``params["frontend"]["proj"]``
+fill the head of the prompt in ``forward`` and ``prefill``), and MusicGen's
+absolute sinusoidal positions (added to the embeddings, and no RoPE).
 
 Params are plain dicts of tensors with the JAX package's names; the layer
 groups of ``params["blocks"]`` are stacked along a leading group axis, as
@@ -33,36 +42,46 @@ from . import attention as attn
 from . import layers, moe, ssm
 from .layers import Tensor
 
-_LATER = "the remaining-architectures slice"
-
 
 # ---------------------------------------------------------------------------
 # config plumbing
 # ---------------------------------------------------------------------------
 
 
-def _check_supported(cfg: ArchConfig, moe_impl: str = "kernel") -> None:
+def _check_moe_impl(moe_impl: str) -> None:
     if moe_impl not in moe.IMPLS:
         raise ValueError(f"moe_impl {moe_impl!r} not in {moe.IMPLS}")
-    if cfg.shared_attn_every:
-        raise NotImplementedError(
-            f"the zamba2 shared attention block ({cfg.name}) comes with {_LATER}")
-    if cfg.frontend or cfg.pos_embed != "rope":
-        raise NotImplementedError(
-            f"frontends and absolute positions ({cfg.name}) come with {_LATER}")
 
 
 def attn_cfg_for(cfg: ArchConfig, kind: str) -> attn.AttnConfig:
+    """The attention of a block of ``kind``; "shared" is zamba2's shared
+    block."""
+    if kind == "shared":
+        return shared_attn_cfg_for(cfg)
     return attn.AttnConfig(
         d_model=cfg.d_model,
         num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.resolved_head_dim,
         qkv_bias=cfg.qkv_bias,
-        rope_theta=cfg.rope_theta,
+        rope_theta=None if cfg.pos_embed == "absolute" else cfg.rope_theta,
         logit_softcap=cfg.attn_logit_softcap,
         window=cfg.local_window if kind == "local" else None,
         scale=cfg.attn_scale,
+    )
+
+
+def shared_attn_cfg_for(cfg: ArchConfig) -> attn.AttnConfig:
+    """Zamba2's shared block: input concat(x, x_embed) of width 2D, head
+    dim 2D / heads (160 at zamba2-2.7b), output width D."""
+    return attn.AttnConfig(
+        d_model=cfg.d_model,
+        num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads,
+        head_dim=(2 * cfg.d_model) // cfg.num_heads,
+        rope_theta=cfg.rope_theta,
+        q_in_dim=2 * cfg.d_model,
+        out_dim=cfg.d_model,
     )
 
 
@@ -89,7 +108,10 @@ def ssm_cfg_for(cfg: ArchConfig) -> ssm.SSMConfig:
 
 
 def group_pattern(cfg: ArchConfig) -> tuple[str, ...]:
-    """Block kinds inside one layer group."""
+    """Block kinds inside one layer group (zamba2: the mamba blocks between
+    two applications of the shared block)."""
+    if cfg.shared_attn_every:
+        return ("mamba",) * cfg.shared_attn_every
     return cfg.layer_pattern
 
 
@@ -160,17 +182,33 @@ def _apply_block(params: dict, cfg: ArchConfig, kind: str, x: Tensor,
     return x + m, aux
 
 
+def _apply_shared_attn(params: dict, cfg: ArchConfig, x: Tensor, x0: Tensor,
+                       mix: Callable[[Tensor], Tensor]) -> Tensor:
+    """Zamba2's shared block around its attention ``mix``: attention over
+    rmsnorm(concat(x, x0)), residual, then the MLP on rmsnorm(x), residual."""
+    x = x + mix(layers.rmsnorm(params["ln"], torch.cat([x, x0], dim=-1)))
+    return x + layers.mlp(params["mlp"], layers.rmsnorm(params["ln2"], x),
+                          act=cfg.mlp_act)
+
+
 def _run_blocks(params: dict, cfg: ArchConfig, x: Tensor, mix: Callable,
                 moe_impl: str, cache: Optional[dict] = None
                 ) -> tuple[Tensor, Optional[Tensor]]:
-    """Every block in order; ``mix(kind, block_params, block_cache, h)``
-    runs a block's mixer, with ``block_cache`` a view into ``cache`` (None
-    without one). Returns (x, the summed MoE aux loss, None without
-    experts)."""
+    """Every block in order, zamba2's shared block at the head of each
+    group (over the block input ``x`` and the embeddings ``x0``);
+    ``mix(kind, block_params, block_cache, h)`` runs a block's mixer, with
+    ``block_cache`` a view into ``cache`` (None without one). Returns (x,
+    the summed MoE aux loss, None without experts)."""
     aux = None
+    x0 = x
     for gi in range(num_groups(cfg)):
         gparams = tree_map(lambda p: p[gi], params["blocks"])
         gcache = tree_map(lambda c: c[gi], cache) if cache is not None else None
+        if cfg.shared_attn_every:
+            sp = params["shared_attn"]
+            sc = gcache["shared"] if gcache is not None else None
+            x = _apply_shared_attn(sp, cfg, x, x0,
+                                   lambda h: mix("shared", sp, sc, h))
         for i, kind in enumerate(group_pattern(cfg)):
             bp = gparams[str(i)]
             bc = gcache[str(i)] if gcache is not None else None
@@ -194,8 +232,15 @@ def _logits(params: dict, cfg: ArchConfig, x: Tensor) -> Tensor:
 def init_params(gen: torch.Generator, cfg: ArchConfig,
                 device: str | torch.device = "cuda") -> dict:
     """Random float32 parameters on ``device`` (CUDA unless the caller asks
-    for the CPU), drawn from ``gen``, a generator on that device."""
-    _check_supported(cfg)
+    for the CPU), drawn from ``gen``, a generator on that device, in the
+    reference's layout."""
+    return assemble_params(init_parts(gen, cfg, device))
+
+
+def init_parts(gen: torch.Generator, cfg: ArchConfig,
+               device: str | torch.device = "cuda"):
+    """``init_params``' draws in order, as pieces: first the tree outside
+    ``blocks``, then each layer group's blocks, drawn as they are taken."""
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, parameters asked for "
@@ -206,9 +251,29 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
                                        cfg.tie_embeddings),
         "final_norm": layers.rmsnorm_init(cfg.d_model, gen.device),
     }
-    groups = [{str(i): _block_init(gen, cfg, kind)
-               for i, kind in enumerate(pat)} for _ in range(num_groups(cfg))]
-    params["blocks"] = _stack(groups)
+    if cfg.frontend:
+        params["frontend"] = {"proj": layers.dense_init(
+            gen, (cfg.frontend_dim, cfg.d_model), cfg.frontend_dim)}
+    if cfg.shared_attn_every:
+        params["shared_attn"] = {
+            "ln": layers.rmsnorm_init(2 * cfg.d_model, gen.device),
+            "attn": attn.attn_init(gen, shared_attn_cfg_for(cfg)),
+            "ln2": layers.rmsnorm_init(cfg.d_model, gen.device),
+            "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                   gated=cfg.mlp_gated),
+        }
+    yield params
+    for _ in range(num_groups(cfg)):
+        yield {str(i): _block_init(gen, cfg, kind)
+               for i, kind in enumerate(pat)}
+
+
+def assemble_params(parts) -> dict:
+    """``init_parts``' pieces as one tree, the groups stacked under
+    ``blocks``."""
+    parts = iter(parts)
+    params = next(parts)
+    params["blocks"] = _stack(list(parts))
     return params
 
 
@@ -219,18 +284,35 @@ def _stack(trees: list[dict]) -> dict:
     return torch.stack(trees)
 
 
+def _embed_input(params: dict, cfg: ArchConfig, tokens: Tensor,
+                 frontend: Optional[Tensor], positions: Tensor) -> Tensor:
+    """Token embeddings; the projected frontend embeddings [B, F, E] in
+    place of the first F (vision and audio stubs); absolute positions where
+    the config has them."""
+    dtype = compute_dtype(cfg)
+    x = layers.embed_tokens(params["embed"], tokens, cfg.embed_scale, dtype)
+    if cfg.frontend and frontend is not None:
+        f = torch.einsum("bfe,ed->bfd", frontend.to(dtype),
+                         params["frontend"]["proj"].to(dtype))
+        x = torch.cat([f, x[:, f.shape[1]:]], dim=1)
+    if cfg.pos_embed == "absolute":
+        x = x + layers.sinusoidal_pos(positions, cfg.d_model, dtype)
+    return x
+
+
 def forward(params: dict, cfg: ArchConfig, tokens: Tensor,
             attn_impl: str = "kernel", ssm_impl: str = "kernel",
-            moe_impl: str = "kernel") -> tuple[Tensor, Tensor]:
+            moe_impl: str = "kernel",
+            frontend: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
     """Causal LM forward. tokens: [B, S] int -> (logits [B,S,V] f32, aux).
-    ``aux`` is the MoE load-balance loss summed over the layers (f32; zero
-    without experts)."""
-    _check_supported(cfg, moe_impl)
+    ``frontend`` [B, F, frontend_dim] (vision and audio configs) fills the
+    first F positions. ``aux`` is the MoE load-balance loss summed over the
+    layers (f32; zero without experts)."""
+    _check_moe_impl(moe_impl)
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
-    x = layers.embed_tokens(params["embed"], tokens, cfg.embed_scale,
-                            compute_dtype(cfg))
+    x = _embed_input(params, cfg, tokens, frontend, positions)
 
     def mix(kind, bp, _, h):
         if kind == "mamba":
@@ -259,6 +341,10 @@ def _group_cache(cfg: ArchConfig, batch: int, max_seq: int,
             cache[str(i)] = attn.init_cache(batch, max_seq,
                                             attn_cfg_for(cfg, kind), dtype,
                                             device)
+    if cfg.shared_attn_every:
+        cache["shared"] = attn.init_cache(batch, max_seq,
+                                          shared_attn_cfg_for(cfg), dtype,
+                                          device)
     return cache
 
 
@@ -276,7 +362,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device: str | torch.device = "cuda") -> dict:
     """The zeroed decode cache on ``device`` (CUDA unless the caller asks
     for the CPU): KV caches in ``dtype``, SSM states in float32."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     return _stack_cache(cfg, _group_cache(cfg, batch, max_seq, dtype, dev))
 
@@ -299,15 +384,15 @@ def ssm_prefill(params: dict, scfg: ssm.SSMConfig, u: Tensor,
 
 def prefill(params: dict, cfg: ArchConfig, tokens: Tensor, cache: dict,
             attn_impl: str = "kernel", ssm_impl: str = "kernel",
-            moe_impl: str = "kernel") -> tuple[Tensor, dict]:
-    """Run the prompt, fill ``cache`` in place. Returns (logits [B,S,V]
-    f32, cache)."""
-    _check_supported(cfg, moe_impl)
+            moe_impl: str = "kernel",
+            frontend: Optional[Tensor] = None) -> tuple[Tensor, dict]:
+    """Run the prompt (its head from ``frontend``, as in ``forward``), fill
+    ``cache`` in place. Returns (logits [B,S,V] f32, cache)."""
+    _check_moe_impl(moe_impl)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
-    x = layers.embed_tokens(params["embed"], tokens, cfg.embed_scale,
-                            compute_dtype(cfg))
+    x = _embed_input(params, cfg, tokens, frontend, positions)
 
     def mix(kind, bp, bc, h):
         if kind == "mamba":
@@ -326,9 +411,8 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: Tensor, cache: dict,
                 moe_impl: str = "kernel") -> tuple[Tensor, dict]:
     """One decode step. tokens: [B, 1], pos: [B] (write index). Advances
     ``cache`` in place. Returns (logits [B, 1, V] f32, cache)."""
-    _check_supported(cfg, moe_impl)
-    x = layers.embed_tokens(params["embed"], tokens, cfg.embed_scale,
-                            compute_dtype(cfg))
+    _check_moe_impl(moe_impl)
+    x = _embed_input(params, cfg, tokens, None, pos[:, None])
 
     def mix(kind, bp, bc, h):
         if kind == "mamba":
@@ -364,17 +448,19 @@ class LM(nn.Module):
         self.ssm_impl = ssm_impl
         self.moe_impl = moe_impl
 
-    def forward(self, tokens: Tensor) -> tuple[Tensor, Tensor]:
+    def forward(self, tokens: Tensor,
+                frontend: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
         return forward(self.params, self.cfg, tokens, self.attn_impl,
-                       self.ssm_impl, self.moe_impl)
+                       self.ssm_impl, self.moe_impl, frontend)
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
         return init_cache(self.cfg, batch, max_seq, dtype, self.device)
 
-    def prefill(self, tokens: Tensor, cache: dict) -> tuple[Tensor, dict]:
+    def prefill(self, tokens: Tensor, cache: dict,
+                frontend: Optional[Tensor] = None) -> tuple[Tensor, dict]:
         return prefill(self.params, self.cfg, tokens, cache, self.attn_impl,
-                       self.ssm_impl, self.moe_impl)
+                       self.ssm_impl, self.moe_impl, frontend)
 
     def decode_step(self, tokens: Tensor, cache: dict,
                     pos: Tensor) -> tuple[Tensor, dict]:

@@ -21,9 +21,11 @@ slice power weight.
 """
 from __future__ import annotations
 
+import copy
 import itertools
 import time
 import zlib
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
@@ -33,6 +35,7 @@ import torch
 from ..configs import ArchConfig
 from ..core.mapscore import MapScoreParams
 from ..core.uxcost import WindowStats, uxcost
+from ..scenarios.arrivals import arrival_from_config
 
 
 # ---------------------------------------------------------------------------
@@ -62,8 +65,14 @@ class ServeRequest:
 
 @dataclass
 class RequestQueue:
-    """Frame generator for registered model streams, strictly periodic
-    from t=0."""
+    """Frame generator for registered model streams.
+
+    Streams are strictly periodic from t=0 by default; pass ``arrival`` (a
+    ``repro_torch.scenarios.arrivals`` process instance or its config dict)
+    for jittered, Poisson, bursty or diurnal traffic. The processes draw
+    from the stream's generator as the JAX package's do, so a workload
+    definition gives the same arrival times and prompts in both engines.
+    """
 
     clock: Callable[[], float]
     streams: dict[str, dict] = field(default_factory=dict)
@@ -73,25 +82,39 @@ class RequestQueue:
     def add_stream(self, model: str, fps: float, batch: int, seq: int,
                    vocab: int, deadline_frac: float = 1.0,
                    depends_on: Optional[str] = None,
-                   trigger_prob: float = 1.0) -> None:
+                   trigger_prob: float = 1.0,
+                   arrival=None) -> None:
         # crc32, not hash(): string hashing is salted per process and would
         # make stream contents differ run to run
         rng = np.random.default_rng(zlib.crc32(model.encode()) & 0xFFFF)
+        proc = None
+        next_t = 0.0
+        if arrival is not None and depends_on is None:
+            # a copy per stream: processes carry per-stream state (MMPP
+            # clocks), so streams must never share one instance
+            proc = (arrival_from_config(arrival) if isinstance(arrival, dict)
+                    else copy.copy(arrival))
+            next_t = proc.start(len(self.streams), 1.0 / fps, rng)
         self.streams[model] = dict(
-            fps=fps, batch=batch, seq=seq, vocab=vocab, next_t=0.0,
+            fps=fps, batch=batch, seq=seq, vocab=vocab, next_t=next_t,
             deadline=deadline_frac / fps, depends_on=depends_on,
-            trigger_prob=trigger_prob, rng=rng)
+            trigger_prob=trigger_prob, rng=rng, arrival=proc)
 
     def poll(self, now: float) -> list[ServeRequest]:
-        """Emit any frames whose arrival time elapsed (head streams)."""
+        """Emit any frames whose arrival time elapsed (head streams); a
+        stream whose process returns None emits no more."""
         out = []
         for name, st in self.streams.items():
             if st["depends_on"] is not None:
                 continue
-            while st["next_t"] <= now:
+            while st["next_t"] is not None and st["next_t"] <= now:
                 t = st["next_t"]
                 out.append(self._make(name, st, t))
-                st["next_t"] = t + 1.0 / st["fps"]
+                if st["arrival"] is None:
+                    st["next_t"] = t + 1.0 / st["fps"]
+                else:
+                    st["next_t"] = st["arrival"].next_after(
+                        t, 1.0 / st["fps"], st["rng"])
         self.pending.extend(out)
         return out
 
@@ -110,6 +133,35 @@ class RequestQueue:
         return ServeRequest(rid=next(self._rid), model=name, tokens=tokens,
                             arrival=t, deadline=t + st["deadline"],
                             depends_on=st["depends_on"])
+
+
+class TraceReplayQueue(RequestQueue):
+    """Replays the head arrivals of a recorded trace
+    (``repro_torch.scenarios.trace.Trace``, the JAX package's format).
+
+    Each recorded arrival time becomes one request for the matching
+    registered stream; models absent from the stream registry are ignored,
+    so a trace can be replayed against a subset deployment. Dependent
+    streams stay live: cascade triggering remains the queue's own seeded
+    draw.
+    """
+
+    def __init__(self, clock: Callable[[], float], trace) -> None:
+        super().__init__(clock=clock)
+        self._times: dict[str, deque] = {
+            name: deque(ts) for name, ts in trace.arrivals_by_model().items()
+        }
+
+    def poll(self, now: float) -> list[ServeRequest]:
+        out = []
+        for name, st in self.streams.items():
+            if st["depends_on"] is not None:
+                continue
+            q = self._times.get(name)
+            while q and q[0] <= now:
+                out.append(self._make(name, st, q.popleft()))
+        self.pending.extend(out)
+        return out
 
 
 # ---------------------------------------------------------------------------

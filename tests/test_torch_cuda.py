@@ -42,6 +42,13 @@ FLASH_CASES = [
     (2, 777, 8, 4, 256, 300, 50.0),
     (1, 1000, 64, 4, 128, None, None),
     (1, 40, 8, 4, 256, None, 50.0),
+    # head dims 96 (phi-3-vision) and 160 (zamba2's shared block): 64-byte
+    # swizzled chunks, groups of 1 and 4, with and without window and softcap
+    (1, 300, 4, 4, 96, 100, 50.0),
+    (2, 257, 8, 2, 96, None, None),
+    (1, 300, 4, 4, 160, 77, 30.0),
+    (2, 257, 8, 2, 160, None, None),
+    (1, 1000, 4, 1, 160, 300, 50.0),
 ]
 
 SSD_CASES = [
@@ -52,6 +59,7 @@ SSD_CASES = [
     (2, 64, 4, 32, 64, 64),
     (1, 512, 4, 64, 128, 256),              # mamba2-130m's head and state
     (2, 60, 3, 6, 5, 20),                   # padded by the binding: chunk, N, P
+    (1, 512, 80, 64, 64, 256),              # zamba2-2.7b's heads and state
 ]
 
 DECODE_CASES = [
@@ -67,6 +75,12 @@ DECODE_CASES = [
     (2, 300, 16, 1, 64, None, None),        # groups of 16
     (1, 200, 32, 2, 16, 50, 30.0),
     (2, 150, 16, 1, 128, 70, None),
+    # head dims 96 and 160, groups of 1 and 4
+    (2, 300, 4, 4, 96, 100, 50.0),
+    (3, 700, 16, 4, 96, None, None),
+    (2, 300, 4, 4, 160, 77, 30.0),
+    (3, 700, 16, 4, 160, None, None),
+    (2, 333, 16, 1, 96, None, 30.0),        # a group of 16 at 96
 ]
 
 # the full-width GQA shapes: (label, s, n, kv, h, window, softcap)
@@ -76,6 +90,8 @@ DECODE_FULL = [
     ("gemma-2b", 8192, 8, 1, 256, None, None),
     ("qwen1.5-4b", 4096, 20, 20, 128, None, None),
     ("qwen3-moe", 1056, 64, 4, 128, None, None),     # a group of 16
+    ("phi-3-vision", 1056, 32, 32, 96, None, None),
+    ("zamba2-2.7b shared", 1056, 32, 32, 160, None, None),
 ]
 
 GMM_CASES = [
@@ -302,6 +318,8 @@ def test_decode_kernel_refuses_a_cache_it_would_have_to_copy(cuda):
 DECODE_MERGED = [
     ("gemma2-2b global", 5120, 8, 4, 256, None, 50.0, [4640]),
     ("qwen3-moe", 1056, 64, 4, 128, None, None, [1040]),
+    ("phi-3-vision", 1056, 32, 32, 96, None, None, [1040]),
+    ("zamba2-2.7b shared", 1056, 32, 32, 160, None, None, [1040]),
 ]
 
 
@@ -456,6 +474,40 @@ def test_flash_bf16_launches_the_wgmma_kernel(cuda, h):
                                   "fp32": before["fp32"] + 1}
     want = ref.attention(q.float(), k.float(), v.float())
     np.testing.assert_allclose(_np(got), _np(want), **TOL[torch.bfloat16])
+
+
+def _kernel_names(fn):
+    """The device kernels ``fn`` runs (after one warm-up call), by the
+    profiler's names, with their counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [96, 160])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_call_runs_its_head_dim_instance(cuda, h, dtype):
+    """By the profiler's kernel names: one call is one launch of the
+    kernel instance of its head dim (no padded head dim, no copy of q, k,
+    v), wgmma for bfloat16 and the CUDA-core kernel for float32."""
+    rng = np.random.default_rng(h)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 200, 4, h), np.float32))
+               .to(cuda, dtype) for _ in range(3))
+    kernels = _kernel_names(lambda: fa.flash_attention(q, k, v))
+    name = "flash_wgmma_kernel" if dtype == torch.bfloat16 else "flash_f32_kernel"
+    assert len(kernels) == 1 and sum(kernels.values()) == 1, kernels
+    assert f"{name}<{h}>" in next(iter(kernels)), kernels
+    if dtype == torch.bfloat16:
+        assert fa.wgmma_stages(h) == (2 if h == 160 else 4)
 
 
 @pytest.mark.cuda

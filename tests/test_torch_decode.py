@@ -208,6 +208,12 @@ def test_num_splits_fills_the_card_within_the_live_range():
     assert dec.num_splits(1, 1, 8192, None, 8, 256) == 24
     assert dec.num_splits(1, 4, 1056, None, 16, 128) == 8
     assert dec.num_splits(1, 8, 1056, None, 4, 128) == 16
+    # head dims 96 (phi-3-vision, 32 KV heads, two blocks an SM) and 160
+    # (zamba2's shared block, 32 KV heads, one block an SM) over 1056 rows
+    assert (dec.mma_blocks_per_sm(96), dec.mma_blocks_per_sm(160)) == (2, 1)
+    assert dec.num_splits(1, 32, 1056, None, 1, 96) == 8
+    assert dec.num_splits(1, 32, 1056, None, 1, 160) == 4
+    assert dec.num_splits(1, 32, 1056, None, 1, 160, "fp32") == 17
     # a short cache never gets more splits than it has tiles
     assert dec.num_splits(1, 1, 100, None) == 2
     assert dec.num_splits(1, 1, 100, None, kernel="fp32") == 2
@@ -231,7 +237,7 @@ def test_num_splits_is_bounded_by_the_live_tiles_and_the_merge(kernel):
     for b in (1, 2, 3, 8, 64):
         for kv in (1, 4, 8, 20):
             for g in (1, 2, 4, 8, 16):
-                for h in (64, 128, 256):
+                for h in (64, 96, 128, 160, 256):
                     for s in (1, 63, 64, 65, 1056, 5120, 8192):
                         for window in (None, 1, 100, 4096, 10000):
                             n = dec.num_splits(b, kv, s, window, g, h, kernel)
@@ -576,9 +582,3 @@ def test_from_jax_params_carries_a_cache_tree_as_it_is():
     assert got["0"]["k"].dtype == torch.bfloat16
     _assert_trees_close(got, jcache, atol=0, rtol=0)
 
-
-def test_decode_rejects_unported_blocks():
-    cfg = dataclasses.replace(tconfigs.smoke_config("gemma-2b"),
-                              frontend="audio_frames")
-    with pytest.raises(NotImplementedError, match="slice"):
-        TM.init_cache(cfg, 1, 8, device="cpu")

@@ -26,6 +26,8 @@ def _modules():
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = _modules()
     assert "repro_torch.kernels.ops" in mods and "repro_torch.launch.serve" in mods
+    assert {"repro_torch.scenarios.arrivals",
+            "repro_torch.scenarios.trace"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

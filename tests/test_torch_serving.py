@@ -6,6 +6,7 @@ same decisions and produce the same numbers exactly. The wall-clock run is
 held to the sanity checks of tests/test_serving.py.
 """
 import numpy as np
+import pytest
 
 from repro import serving as js
 from repro_torch import serving as ts
@@ -150,3 +151,186 @@ def test_end_to_end_run_with_cascade_on_cpu():
     served = [r for r in q.pending if r.result is not None]
     assert served and all(tuple(r.result.shape) == (1, 16, 128)
                           for r in served)
+
+
+# ---------------------------------------------------------------------------
+# arrival processes and trace replay (tests/test_serving.py's, mirrored, and
+# held equal to the JAX package's queue on the same seeds)
+# ---------------------------------------------------------------------------
+
+from repro.scenarios import arrivals as jarr  # noqa: E402
+from repro.scenarios import trace as jtrace  # noqa: E402
+from repro_torch.scenarios import arrivals as tarr  # noqa: E402
+from repro_torch.scenarios import trace as ttrace  # noqa: E402
+
+#: one config per process kind, away from the defaults where it has any
+ARRIVALS = {
+    "periodic": {"kind": "periodic"},
+    "periodic@phase": {"kind": "periodic", "phase_frac": 0.25},
+    "periodic_jitter": {"kind": "periodic_jitter", "jitter": 0.3},
+    "poisson": {"kind": "poisson", "rate_scale": 1.5},
+    "bursty": {"kind": "bursty", "on_s": 0.2, "off_s": 0.4,
+               "burst_factor": 3.0},
+    "diurnal": {"kind": "diurnal", "amplitude": 0.6, "day_s": 1.5,
+                "phase": 0.1},
+    "triggered": {"kind": "triggered"},
+}
+
+
+def test_every_arrival_kind_is_ported():
+    assert tarr.arrival_kinds() == jarr.arrival_kinds()
+    assert {c["kind"] for c in ARRIVALS.values()} == set(tarr.arrival_kinds())
+
+
+@pytest.mark.parametrize("name", sorted(ARRIVALS))
+def test_arrival_process_draws_equal_the_reference(name):
+    """start / next_after on the same generator seeds: the same times bit
+    for bit, the same config back, and the generators left in the same
+    state."""
+    cfg = ARRIVALS[name]
+    jp, tp = jarr.arrival_from_config(cfg), tarr.arrival_from_config(cfg)
+    assert tp.to_config() == jp.to_config()
+    for index, period in ((0, 0.1), (3, 1 / 12)):
+        jr, tr = np.random.default_rng(index), np.random.default_rng(index)
+        jt, tt = jp.start(index, period, jr), tp.start(index, period, tr)
+        seen = []
+        for _ in range(200):
+            assert jt == tt
+            if tt is None:
+                break
+            seen.append(tt)
+            jt, tt = jp.next_after(jt, period, jr), tp.next_after(tt, period, tr)
+        assert jr.random() == tr.random()
+        assert (len(seen) == 0) == (cfg["kind"] == "triggered")
+
+
+@pytest.mark.parametrize("name", sorted(ARRIVALS))
+def test_queue_with_arrival_process_matches_reference(name):
+    """The same streams on both queues, the process given as a config dict
+    to one head stream and as an instance to another: the same requests
+    (times, deadlines, tokens) at every poll, and dependents unaffected."""
+    cfg = ARRIVALS[name]
+    queues = []
+    for mod, arr in ((js, jarr), (ts, tarr)):
+        q = mod.RequestQueue(clock=lambda: 0.0)
+        q.add_stream("det", 8, 1, 16, 128, arrival=cfg)
+        q.add_stream("ver", 8, 2, 8, 64, depends_on="det", trigger_prob=0.5,
+                     arrival=cfg)
+        q.add_stream("ctx", 4, 1, 32, 256000, deadline_frac=0.5,
+                     arrival=arr.arrival_from_config(cfg))
+        queues.append(q)
+    jq, tq = queues
+    for now in (0.0, 0.3, 0.31, 1.7, 3.0):
+        jout, tout = jq.poll(now), tq.poll(now)
+        assert len(jout) == len(tout)
+        for a, b in zip(jout, tout):
+            _same(a, b)
+        jd, td = jq.trigger_dependents("det", now), tq.trigger_dependents("det", now)
+        assert len(jd) == len(td)
+        for a, b in zip(jd, td):
+            _same(a, b)
+    assert len(jq.pending) == len(tq.pending)
+    heads = [r for r in tq.pending if r.depends_on is None]
+    assert (len(heads) == 0) == (cfg["kind"] == "triggered")
+
+
+def test_queue_arrival_process_streams():
+    """A Poisson stream drives the queue; draws are reproducible (crc32
+    seed) and not periodic (tests/test_serving.py's check)."""
+    def emitted():
+        q = ts.RequestQueue(clock=lambda: 0.0)
+        q.add_stream("m", fps=100, batch=1, seq=4, vocab=8,
+                     arrival=tarr.Poisson().to_config())
+        return [r.arrival for r in q.poll(1.0)]
+
+    ts_ = emitted()
+    assert len(ts_) > 10
+    assert ts_ == emitted()
+    assert np.std(np.diff(ts_)) > 1e-4
+
+
+def test_queue_without_arrival_stays_strictly_periodic():
+    q = ts.RequestQueue(clock=lambda: 0.0)
+    q.add_stream("m", fps=10, batch=1, seq=4, vocab=8)
+    assert q.streams["m"]["arrival"] is None
+    want = [0.0]
+    while want[-1] + 0.1 <= 2.0:
+        want.append(want[-1] + 0.1)
+    assert [r.arrival for r in q.poll(2.0)] == want
+
+
+def test_request_queue_copies_arrival_instances():
+    """Stateful arrival processes are never shared between streams."""
+    shared = tarr.BurstyOnOff(on_s=0.3, off_s=0.3, burst_factor=2.0)
+    q = ts.RequestQueue(clock=lambda: 0.0)
+    q.add_stream("a", fps=10, batch=1, seq=8, vocab=16, arrival=shared)
+    q.add_stream("b", fps=10, batch=1, seq=8, vocab=16, arrival=shared)
+    assert q.streams["a"]["arrival"] is not q.streams["b"]["arrival"]
+    assert q.streams["a"]["arrival"] is not shared
+
+
+@pytest.fixture(scope="module")
+def sim_trace_text():
+    """A trace the JAX simulator recorded (AR_Call, 1 s), as JSONL text."""
+    from repro.core import build_scenario, dream_full
+    from repro.core.simulator import Simulator
+    sim = Simulator(build_scenario("AR_Call", 0.5), "4K_1WS2OS", dream_full(),
+                    duration_s=1.0, seed=0, record=True)
+    sim.run()
+    return jtrace.dumps(sim.trace)
+
+
+def test_trace_from_the_simulator_loads_unchanged(sim_trace_text, tmp_path):
+    path = tmp_path / "run.jsonl"
+    path.write_text(sim_trace_text)
+    got = ttrace.load_trace(str(path))
+    want = jtrace.loads(sim_trace_text)
+    assert got.meta == want.meta and got.events == want.events
+    assert got.arrivals_by_model() == want.arrivals_by_model()
+    assert ttrace.dumps(got) == sim_trace_text
+
+
+def test_trace_replay_queue_feeds_recorded_arrivals(sim_trace_text):
+    """A simulator-recorded trace replays through the port's queue as
+    through the JAX package's: the same requests, drained once, and the
+    dependents still triggered live."""
+    expected = jtrace.loads(sim_trace_text).arrivals_by_model()
+    queues = []
+    for mod, tr in ((js, jtrace), (ts, ttrace)):
+        q = mod.TraceReplayQueue(clock=lambda: 0.0, trace=tr.loads(sim_trace_text))
+        q.add_stream("kws_res8", fps=15, batch=1, seq=4, vocab=8)
+        q.add_stream("translate_gnmt", fps=15, batch=1, seq=4, vocab=8,
+                     depends_on="kws_res8", trigger_prob=1.0)
+        queues.append(q)
+    jq, tq = queues
+    for now in (0.3, 1.0):
+        jout, tout = jq.poll(now), tq.poll(now)
+        assert len(jout) == len(tout)
+        for a, b in zip(jout, tout):
+            _same(a, b)
+    assert [r.arrival for r in tq.pending] == expected["kws_res8"]
+    assert all(r.model == "kws_res8" for r in tq.pending)
+    assert tq.poll(1.0) == []
+    assert len(tq.trigger_dependents("kws_res8", now=0.5)) == 1
+
+
+def test_recorder_round_trips_a_live_queue():
+    """Arrivals a live queue emitted, recorded and written out, replay as
+    the same frames at the same times (the prompts differ: the live
+    processes drew their gaps from the streams' generators)."""
+    live = ts.RequestQueue(clock=lambda: 0.0)
+    live.add_stream("det", 8, 1, 16, 128, arrival=ARRIVALS["poisson"])
+    live.add_stream("ctx", 4, 1, 32, 512, arrival=ARRIVALS["bursty"])
+    rec = ttrace.TraceRecorder({"scenario": "live"})
+    for r in live.poll(2.0):
+        rec.arrival(r.arrival, r.model)
+    trace = ttrace.loads(ttrace.dumps(rec.trace()))
+    assert trace.meta == {"scenario": "live", "version": ttrace.TRACE_VERSION}
+    replay = ts.TraceReplayQueue(clock=lambda: 0.0, trace=trace)
+    replay.add_stream("det", 8, 1, 16, 128)
+    replay.add_stream("ctx", 4, 1, 32, 512)
+    out = replay.poll(2.0)
+    by_model = lambda rs, m: [r for r in rs if r.model == m]
+    for m in ("det", "ctx"):
+        a, b = by_model(live.pending, m), by_model(out, m)
+        assert [r.arrival for r in a] == [r.arrival for r in b] and a
