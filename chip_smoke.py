@@ -84,12 +84,27 @@ Phases, each of which raises (exit code != 0) on any failure:
    stub), musicgen-large (48 layers, a 256-position stub, absolute
    positions) and minitron-8b (32 layers), each whole, at its published
    width in bf16, through phase 7's run (1024-token prefill into a
-   1056-row cache, 16 greedy steps) with all of its checks.
+   1056-row cache, 16 greedy steps) with all of its checks;
+10. training, through ``repro_torch.training`` on the torch path (no
+   kernel has a backward; every train run must launch none): one float32
+   step of qwen1.5-4b and mamba2-130m at smoke width, card against CPU
+   (loss, metrics, gradients, params, m and v); gemma2-2b at its published
+   config for 6 steps through ``Trainer`` (bf16 compute, float32 master
+   params and AdamW state updated in place, batch 8 x 128, the reference
+   launcher's defaults): step ms, tokens/s, peak memory and model-FLOPs
+   share, every metric finite, 1024 tokens a step, peak memory under the
+   card's; mamba2-130m at its published config (batch 8 x 512, accum 2,
+   int8 gradient compression, a checkpoint every 2 steps) preempted at step
+   3 and resumed from its checkpoint, its trajectory equal to an
+   uninterrupted run's bit for bit under deterministic algorithms; the
+   final checkpoint restored into an ``LM`` and served by a 1024-token
+   prefill through the SSD kernel, each call held against float32 as in
+   phase 5, the logits against the float32 torch forward.
 
 The ``kernels`` line's launches add up each kernel's counted runs: flash
 over the two serving runs and the counted prefills of phases 7-9, SSD over
-the serving runs and the counted prefills, decode attention over the steps
-of phases 7-9, gmm over the MoE runs.
+the serving runs, the counted prefills and phase 10's restored prefill,
+decode attention over the steps of phases 7-9, gmm over the MoE runs.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -98,6 +113,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -107,6 +124,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS is deterministic only with a fixed workspace, set before its first
+# use: phase 10's crash-restart run is held bit for bit
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # which set every kernel's bound, float32 on the CUDA cores, printed beside
@@ -192,17 +212,23 @@ def cold_l2(torch):
 
 def compare(name: str, got, want, tol: float) -> float:
     """Max abs error; raises unless |got - want| <= tol + tol * |want|."""
+    return close(name, got, want, tol, tol)
+
+
+def close(name: str, got, want, atol: float, rtol: float) -> float:
+    """Max abs error; raises unless |got - want| <= atol + rtol * |want|
+    and ``got`` is finite."""
     import torch
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     if not torch.isfinite(got).all():
-        raise AssertionError(f"{name}: kernel output has non-finite values")
+        raise AssertionError(f"{name}: non-finite values")
     err = (got - want).abs()
-    bad = err > tol + tol * want.abs()
+    bad = err > atol + rtol * want.abs()
     if bad.any():
         raise AssertionError(f"{name}: {int(bad.sum())} elements off by more "
-                             f"than atol=rtol={tol}; max abs err "
+                             f"than atol={atol} rtol={rtol}; max abs err "
                              f"{float(err.max())}")
-    return float(err.max())
+    return float(err.max()) if err.numel() else 0.0
 
 
 def rel_l2(got, want) -> float:
@@ -869,6 +895,14 @@ def profile_fn(torch, label: str, fn) -> list:
     for us, count, key in rows[:8]:
         log(f"[profile]   {us:10.1f} us {100 * us / busy:5.1f}% "
             f"x{count:<4d} {key[:90]}")
+    # the host's side: CUDA runtime calls (launches, copies, allocations,
+    # synchronisations) by the host time they took
+    host = sorted(((e.self_cpu_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU
+                   and e.key.startswith("cuda")), reverse=True)
+    log(f"[profile]   host CUDA runtime calls: " + "; ".join(
+        f"{key} {us:.1f} us x{count}" for us, count, key in host[:4]))
     return rows
 
 
@@ -1780,6 +1814,341 @@ def moe_phase(torch, gen):
     return headline, {n: sum(r[n] for r in runs) for n in runs[0]}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training
+# ---------------------------------------------------------------------------
+
+#: the full-width train run: (arch, seq, batch, steps), at the reference
+#: launch/train.py's defaults (batch 8 of 128 tokens, lr 3e-3)
+TRAIN_FULL_WIDTH = ("gemma2-2b", 128, 8, 6)
+#: the crash-restart run: (arch, seq, batch, accum, steps, fail at, ckpt
+#: every), with --compress-grads' CompressionConfig()
+TRAIN_RESTART = ("mamba2-130m", 512, 8, 2, 6, 3, 2)
+#: card against CPU, one float32 step at smoke width: the tolerances of
+#: tests/test_torch_training.py (metrics; gradients; params, m and v)
+TRAIN_METRIC_RTOL = 1e-5
+TRAIN_GRAD_TOL = dict(atol=1e-6, rtol=1e-4)
+TRAIN_STATE_TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def kernel_modules() -> dict:
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gmm_mod
+    from repro_torch.kernels import ssd as ssd_mod
+    return {"flash_attention": fa, "ssd": ssd_mod, "decode_attention": dec,
+            "gmm": gmm_mod}
+
+
+def kernel_counts() -> dict:
+    return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
+def reset_kernel_counters() -> None:
+    """Every kernel's launch counters to 0."""
+    for mod in kernel_modules().values():
+        mod.launches = 0
+        mod.kernel_launches = dict.fromkeys(mod.kernel_launches, 0)
+
+
+class no_kernel_launch:
+    """Raises on exit if a CUDA kernel of the port launched inside: the
+    train step goes through the torch path (no kernel has a backward)."""
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def __enter__(self):
+        self.before = kernel_counts()
+
+    def __exit__(self, exc_type, *exc):
+        after = kernel_counts()
+        if exc_type is None and after != self.before:
+            raise AssertionError(f"{self.label}: kernels launched "
+                                 f"{self.before} -> {after}")
+        return False
+
+
+def flat_tree(tree, prefix: str = "") -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in flat_tree(tree[k], f"{prefix}{k}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
+def check_train_smoke(torch) -> None:
+    """One float32 train step at smoke width (vocab 512), card against CPU
+    from the same CPU-drawn params and a mid-run optimizer state (m, v and
+    the step drawn from a seed: a first step from zeros makes Adam's update
+    g / (|g| + eps), the sign of float noise where a gradient is zero in
+    exact arithmetic, as qwen's key bias's is)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import model as M
+    from repro_torch.training import (OptimConfig, TrainConfig,
+                                      build_grad_fn, build_train_step,
+                                      init_train_state)
+
+    for arch in ("qwen1.5-4b", "mamba2-130m"):
+        cfg = dataclasses.replace(smoke_config(arch), vocab_size=512,
+                                  dtype="float32")
+        tcfg = TrainConfig(optim=OptimConfig(learning_rate=1e-2,
+                                             warmup_steps=2, total_steps=20))
+        cpu = init_train_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                               "cpu")
+        g = torch.Generator().manual_seed(7)
+        cpu["opt"]["m"] = M.tree_map(
+            lambda p: 1e-2 * torch.randn(p.shape, generator=g), cpu["params"])
+        cpu["opt"]["v"] = M.tree_map(
+            lambda p: 1e-5 + 9e-5 * torch.rand(p.shape, generator=g),
+            cpu["params"])
+        cpu["opt"]["step"] = torch.tensor(10, dtype=torch.int32)
+        card = M.tree_map(lambda t: t.to("cuda"), cpu)
+        b = SyntheticLMData(vocab_size=512, seq_len=64, global_batch=4,
+                            seed=3).batch(0)
+        bc = {k: torch.from_numpy(v) for k, v in b.items()}
+        bg = {k: v.to("cuda") for k, v in bc.items()}
+        with no_kernel_launch(f"{arch} smoke train step"):
+            grads_c, _ = build_grad_fn(cfg, tcfg)(cpu["params"], bc)
+            grads_g, _ = build_grad_fn(cfg, tcfg)(card["params"], bg)
+            step = build_train_step(cfg, tcfg)
+            _, mc = step(cpu, bc)
+            _, mg = step(card, bg)
+            torch.cuda.synchronize()
+        g_err = max(close(f"{arch} grad {n}", a.cpu(), b, **TRAIN_GRAD_TOL)
+                    for (n, a), (_, b) in zip(flat_tree(grads_g),
+                                              flat_tree(grads_c)))
+        m_err = max(close(f"{arch} metric {k}", mg[k].cpu(), mc[k], 0.0,
+                          TRAIN_METRIC_RTOL) for k in mc)
+        s_err = max(close(f"{arch} state {n}", a.cpu(), b, **TRAIN_STATE_TOL)
+                    for (n, a), (_, b) in zip(flat_tree(card),
+                                              flat_tree(cpu)))
+        log(f"[train] {arch} smoke fp32 vocab 512, one step: card vs CPU "
+            f"loss {float(mg['loss'])} / {float(mc['loss'])}; max abs err "
+            f"metrics {m_err} (rtol {TRAIN_METRIC_RTOL}), grads {g_err} "
+            f"({TRAIN_GRAD_TOL}), params, m, v {s_err} ({TRAIN_STATE_TOL}); "
+            f"no kernel launched")
+
+
+def train_full_width(torch, card: str) -> None:
+    """gemma2-2b at its published config (26 layers, vocab 256000), bf16
+    compute over float32 master params and AdamW state, through ``Trainer``
+    for TRAIN_FULL_WIDTH's steps: step time (host clock around each step,
+    which ends on reading its metrics), tokens/s, peak memory and the
+    model-FLOPs share of the bf16 peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import model as M
+    from repro_torch.training import (OptimConfig, TrainConfig, Trainer,
+                                      build_train_step)
+
+    arch, seq, batch, steps = TRAIN_FULL_WIDTH
+    cfg = get_config(arch)
+    tcfg = TrainConfig(optim=OptimConfig(learning_rate=3e-3,
+                                         warmup_steps=steps // 10,
+                                         total_steps=steps))
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq,
+                           global_batch=batch, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with no_kernel_launch(f"{arch} training"):
+        trainer = Trainer(cfg=cfg, tcfg=tcfg, data=iter(data), log_every=1,
+                          log_fn=lambda s: log(f"[train] {arch} {s}"),
+                          device="cuda")
+        trainer.init_or_resume(resume="never")
+        hist = trainer.run(steps)
+    wall = time.perf_counter() - t0
+    stats = torch.cuda.memory_stats()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    n_params = sum(p.numel() for p in M.tree_leaves(trainer.state["params"]))
+    times = [t * 1e3 for t in trainer.straggler.times]
+    for m in hist:
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{arch} step {m['step']}: non-finite {bad}")
+        if m["tokens"] != seq * batch:
+            raise AssertionError(f"{arch} step {m['step']}: {m['tokens']} "
+                                 f"tokens, expected {seq * batch}")
+    if not peak < total:
+        raise AssertionError(f"{arch}: peak memory {peak} above the card's "
+                             f"{total}")
+    med = statistics.median(times[1:])
+    tok_s = seq * batch / (med / 1e3)
+    share = 6 * n_params * seq * batch / (med / 1e3) / PEAK_BF16
+    log(f"[train] {arch} ({cfg.num_layers} layers, {n_params} parameters, "
+        f"float32 master params and AdamW state, bf16 compute), batch "
+        f"{batch} x {seq} tokens, {steps} steps in {wall:.1f} s with set-up: "
+        f"step ms {times}; median step {med} ms over steps 2-{steps}, "
+        f"{tok_s} tokens/s, peak memory {peak} bytes of {total}, model-FLOPs "
+        f"share {share} of {PEAK_BF16 / 1e12:.0f} TFLOP/s bf16 "
+        f"(6 N tokens / step time); the caching allocator's cudaMalloc "
+        f"calls {stats['num_device_alloc']}, retries after a failed one "
+        f"{stats['num_alloc_retries']}; losses "
+        f"{[m['loss'] for m in hist]}; {card}")
+    # where a step's time goes: one more step, profiled (autograd back on
+    # inside profile_fn's inference mode)
+    step_fn = build_train_step(cfg, tcfg)
+    batch = {k: torch.as_tensor(v).to("cuda")
+             for k, v in data.batch(steps).items()}
+
+    def one_step():
+        with torch.inference_mode(False):
+            step_fn(trainer.state, batch)
+    with no_kernel_launch(f"{arch} profiled step"):
+        profile_fn(torch, f"{arch} train step (batch {batch['tokens'].shape[0]}"
+                   f" x {seq})", one_step)
+    del trainer, hist
+    torch.cuda.empty_cache()
+
+
+def train_restart(torch) -> dict:
+    """mamba2-130m at its published config, bf16 compute, ``accum``
+    microbatches and int8 gradient compression, checkpointing every
+    ``ckpt every`` steps: a run preempted by ``FaultInjector`` and resumed
+    with ``resume="must"`` (the data fast-forwarded) must give the
+    uninterrupted run's metrics and final state bit for bit, under
+    ``torch.use_deterministic_algorithms``. The final checkpoint is then
+    served: a 1024-token prefill through the kernels, each SSD call held
+    against the float32 plain version (BF16_REL_L2) and the logits against
+    the float32 torch forward (within twice the bf16 torch forward's
+    error). Returns the prefill's launches."""
+    import tempfile
+    import warnings
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_compute_dtype
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import (CheckpointManager, CompressionConfig,
+                                         FaultInjector, SimulatedPreemption)
+    from repro_torch.kernels import ssd as ssd_mod
+    from repro_torch.models import LM
+    from repro_torch.models import model as M
+    from repro_torch.training import OptimConfig, TrainConfig, Trainer
+
+    arch, seq, batch, accum, steps, fail_at, every = TRAIN_RESTART
+    cfg = get_config(arch)
+    tcfg = TrainConfig(optim=OptimConfig(learning_rate=3e-3,
+                                         warmup_steps=steps // 10,
+                                         total_steps=steps),
+                       accum=accum, compression=CompressionConfig())
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq,
+                           global_batch=batch, seed=1)
+
+    def trainer(ckpt, it, fail=None):
+        return Trainer(cfg=cfg, tcfg=tcfg, data=it, ckpt_dir=ckpt,
+                       ckpt_every=every, log_every=1000,
+                       fault_injector=FaultInjector(fail) if fail else None,
+                       device="cuda")
+
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = tmp.name
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                no_kernel_launch(f"{arch} training"):
+            warnings.simplefilter("always")
+            ref = trainer(None, iter(data))
+            ref.init_or_resume(resume="never")
+            ref_hist = ref.run(steps)
+            first = trainer(ckpt, iter(data), fail=(fail_at,))
+            first.init_or_resume(resume="never")
+            try:
+                first.run(steps)
+                raise AssertionError(f"{arch}: no preemption at step "
+                                     f"{fail_at}")
+            except SimulatedPreemption:
+                pass
+            resumed = trainer(ckpt, None)
+            resumed.init_or_resume(resume="must")
+            start = resumed.step
+            if start != fail_at // every * every:
+                raise AssertionError(f"{arch}: resumed at step {start}")
+            resumed.data = iter(data.batch(s) for s in range(start, steps))
+            hist = resumed.run(steps)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message) for w in caught
+                     if "deterministic" in str(w.message)})
+    want = ref_hist[start:]
+    if nondet:
+        # an op without a deterministic kernel: held at a tolerance instead
+        log(f"[train] {arch}: ops without a deterministic kernel: {nondet}; "
+            f"the trajectories are held at rtol 1e-5 instead of exactly")
+        for g, w in zip(hist, want):
+            for k in w:
+                if not math.isclose(g[k], w[k], rel_tol=1e-5, abs_tol=1e-7):
+                    raise AssertionError(f"{arch} step {w['step']} {k}: "
+                                         f"resumed {g[k]}, uninterrupted {w[k]}")
+    else:
+        if hist != want:
+            raise AssertionError(f"{arch}: resumed metrics {hist}, "
+                                 f"uninterrupted {want}")
+        for (n, a), (_, b) in zip(flat_tree(resumed.state),
+                                  flat_tree(ref.state)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{arch}: resumed state {n} differs")
+    log(f"[train] {arch} (published config, bf16 compute) batch {batch} x "
+        f"{seq}, accum {accum}, int8 compression, checkpoint every {every}: "
+        f"preempted at step {fail_at}, resumed from {start}; losses of steps "
+        f"{start + 1}-{steps} resumed {[m['loss'] for m in hist]}, "
+        f"uninterrupted {[m['loss'] for m in want]}: "
+        f"{'equal bit for bit, final state too' if not nondet else 'within rtol 1e-5'}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+    del ref, first, resumed
+    torch.cuda.empty_cache()
+
+    step, state, _ = CheckpointManager(ckpt).restore(device="cuda")
+    tmp.cleanup()
+    if step != steps:
+        raise AssertionError(f"{arch}: last checkpoint at step {step}")
+    lm = LM(cfg, to_compute_dtype(state["params"], M.compute_dtype(cfg)),
+            device="cuda")
+    p32 = state["params"]
+    del state
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    prompt = 1024
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    with torch.inference_mode():
+        cache = lm.init_cache(1, prompt)
+        reset_kernel_counters()
+        with tap_kernels() as calls:
+            logits, _ = lm.prefill(tokens, cache)
+        launches = kernel_counts()
+        check_taps(f"{arch} restored from step {step}, prefill of {prompt}",
+                   calls, expected_calls(torch, M, cfg, prompt), "train")
+        want_l = dict.fromkeys(launches, 0) | {"ssd": cfg.num_layers}
+        if launches != want_l:
+            raise AssertionError(f"{arch} prefill: launches {launches}, "
+                                 f"expected {want_l}")
+        ssd_by_kernel(ssd_mod, f"{arch} restored prefill of {prompt}")
+        want = M.forward(p32, dataclasses.replace(cfg, dtype="float32"),
+                         tokens, "torch", "torch")[0]
+        kern = rel_l2(logits, want)
+        plain = rel_l2(M.forward(lm.params, cfg, tokens, "torch", "torch")[0],
+                       want)
+    gate = 2 * plain
+    log(f"[train] {arch} restored, prefill of {prompt} through the kernels: "
+        f"relative L2 err of the logits against the float32 torch forward "
+        f"{kern}, the bf16 torch forward's {plain} (gate {gate}); launches "
+        f"{launches}")
+    if not kern <= gate:
+        raise AssertionError(f"{arch}: restored prefill off by {kern}, above "
+                             f"{gate}")
+    del lm, p32, cache, logits, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_phase(torch, card: str) -> dict:
+    torch.cuda.empty_cache()
+    check_train_smoke(torch)
+    train_full_width(torch, card)
+    return train_restart(torch)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1835,15 +2204,21 @@ def main() -> int:
     # 9. the remaining architectures at full width
     t_archs = time.perf_counter()
     arch_launches = archs_phase(torch, gen)
+
+    # 10. training
+    t_train = time.perf_counter()
+    train_launches = train_phase(torch, card)
     log(f"[time] phases 1-7 {t_moe - t_start:.1f} s, phase 8 (MoE) "
         f"{t_archs - t_moe:.1f} s, phase 9 (archs) "
-        f"{time.perf_counter() - t_archs:.1f} s")
+        f"{t_train - t_archs:.1f} s, phase 10 (training) "
+        f"{time.perf_counter() - t_train:.1f} s")
     log(f"[launches] serving {launches}, decode {dec_launches}, MoE "
-        f"{moe_launches}, archs {arch_launches}")
+        f"{moe_launches}, archs {arch_launches}, training {train_launches}")
     launches = sum_launches([{"launches": launches},
                              {"launches": dec_launches},
                              {"launches": moe_launches},
-                             {"launches": arch_launches}])
+                             {"launches": arch_launches},
+                             {"launches": train_launches}])
 
     kernels = [
         dict(name="flash_attention", route="cuda",

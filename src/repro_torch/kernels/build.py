@@ -20,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -152,6 +154,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_gmm_fwd.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
+
+
+def check_no_grad(kernel: str, *tensors) -> None:
+    """Raise if autograd would need a backward through ``kernel``: no CUDA
+    kernel here has one, and its output is a fresh tensor without a graph,
+    so the gradients of everything upstream would silently be lost."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, and the CUDA kernel has no "
+            f"backward pass; training goes through impl='torch' "
+            f"(attn_impl='torch', ssm_impl='torch', moe_impl='einsum'), and a "
+            f"kernel call runs under torch.no_grad() or inference_mode")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -7,7 +7,9 @@ which raises on anything it does not take. The flash kernel masks ragged
 sequence ends itself, so only the SSD scan is padded (to its chunk) on
 CUDA, and the decode kernel reads only the live rows of the cache, so it is
 never padded. Neither version of the grouped matmul is padded. A CUDA
-tensor never falls back to the plain version.
+tensor never falls back to the plain version, and no kernel has a backward
+pass: on CUDA, an input that requires grad under grad mode raises
+(``build.check_no_grad``) where the plain version would differentiate.
 """
 from __future__ import annotations
 

@@ -38,6 +38,7 @@ def ssd(
     ``chunk``. Returns (y [B,S,H,P] in x's dtype, final state [B,H,N,P]
     float32)."""
     global launches
+    build.check_no_grad("ssd", x, dt, A, B, C, D)
     b, s, h, p = x.shape
     n = B.shape[-1]
     tensors = dict(x=x, dt=dt, A=A, B=B, C=C, D=D)

@@ -1,1 +1,1 @@
-"""Launcher: the serving entry point."""
+"""Launchers: the serving and training entry points."""

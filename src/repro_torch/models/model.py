@@ -132,6 +132,26 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """Every tensor leaf of a nested dict, over sorted keys (the order of
+    ``jax.tree.leaves``)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(like, leaves) -> dict:
+    """A tree shaped like ``like`` holding ``leaves`` (in ``tree_leaves``'
+    order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+    return build(like)
+
+
 # ---------------------------------------------------------------------------
 # per-block init / apply
 # ---------------------------------------------------------------------------
@@ -201,8 +221,11 @@ def _run_blocks(params: dict, cfg: ArchConfig, x: Tensor, mix: Callable,
     the summed MoE aux loss, None without experts)."""
     aux = None
     x0 = x
+    # one unbind, whose backward stacks the groups' gradients once (indexing
+    # a group would add a zeroed gradient of the whole stack for each group)
+    groups = tree_map(lambda p: p.unbind(0), params["blocks"])
     for gi in range(num_groups(cfg)):
-        gparams = tree_map(lambda p: p[gi], params["blocks"])
+        gparams = tree_map(lambda p: p[gi], groups)
         gcache = tree_map(lambda c: c[gi], cache) if cache is not None else None
         if cfg.shared_attn_every:
             sp = params["shared_attn"]

@@ -681,3 +681,169 @@ def test_moe_decode_step_launches_gmm_three_times_a_layer(cuda, arch):
     want, _ = lm(torch.cat([tokens, nxt], 1))
     np.testing.assert_allclose(_np(dlogits[:, 0]), _np(want[:, -1]),
                                atol=1e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# training on the card (the torch path; the kernels refuse to be trained)
+# ---------------------------------------------------------------------------
+
+TRAIN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+TRAIN_STATE_TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def _train_cfg(arch, dtype):
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    return dataclasses.replace(smoke_config(arch), vocab_size=128, dtype=dtype)
+
+
+def _train_batch(device, vocab=128):
+    from repro_torch.data import SyntheticLMData
+    b = SyntheticLMData(vocab_size=vocab, seq_len=16, global_batch=4,
+                        seed=3).batch(0)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def _mid_run(state, seed=7):
+    """m, v and the step of a run under way (see tests/test_torch_training.py
+    for why a first step from zeros is not compared)."""
+    from repro_torch.models import model as M
+    g = torch.Generator().manual_seed(seed)
+    state["opt"]["m"] = M.tree_map(
+        lambda p: 1e-2 * torch.randn(p.shape, generator=g), state["params"])
+    state["opt"]["v"] = M.tree_map(
+        lambda p: 1e-5 + 9e-5 * torch.rand(p.shape, generator=g),
+        state["params"])
+    state["opt"]["step"] = torch.tensor(10, dtype=torch.int32)
+    return state
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k], f"{prefix}{k}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "mamba2-130m"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    from repro_torch.models import model as M
+    from repro_torch.training import (OptimConfig, TrainConfig,
+                                      build_grad_fn, build_train_step,
+                                      init_train_state)
+    cfg = _train_cfg(arch, "float32")
+    tcfg = TrainConfig(optim=OptimConfig(learning_rate=1e-2, warmup_steps=2,
+                                         total_steps=20))
+    cpu = _mid_run(init_train_state(torch.Generator().manual_seed(0), cfg,
+                                    tcfg, "cpu"))
+    card = M.tree_map(lambda t: t.to(cuda), cpu)
+    bc, bg = _train_batch("cpu"), _train_batch(cuda)
+    gc, mc = build_grad_fn(cfg, tcfg)(cpu["params"], bc)
+    gg, mg = build_grad_fn(cfg, tcfg)(card["params"], bg)
+    for (name, a), (_, b) in zip(_flat(gg), _flat(gc)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                   **TRAIN_GRAD_TOL, err_msg=name)
+    step = build_train_step(cfg, tcfg)
+    _, mc = step(cpu, bc)
+    _, mg = step(card, bg)
+    for k in mc:
+        np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=1e-5,
+                                   err_msg=k)
+    for (name, a), (_, b) in zip(_flat(card), _flat(cpu)):
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                   **TRAIN_STATE_TOL, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,needs", [
+    ("gemma2-2b", ("attn/wq", "attn/wk", "attn/wv")),
+    ("mamba2-130m", ("ssm/in_proj",)),
+    ("phi3.5-moe-42b-a6.6b", ("attn/wq", "attn/wk", "attn/wv", "moe/router")),
+])
+def test_bf16_train_step_gives_every_leaf_a_gradient(cuda, arch, needs):
+    """A kernel output without a graph would leave every weight upstream of
+    it with a zero gradient: every leaf's must be finite and nonzero."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gmm as gmm_mod
+    from repro_torch.kernels import ssd as ssd_mod
+    from repro_torch.training import (TrainConfig, build_grad_fn,
+                                      build_train_step, init_train_state)
+    cfg = _train_cfg(arch, "bfloat16")
+    tcfg = TrainConfig()
+    state = init_train_state(torch.Generator(device=cuda).manual_seed(0), cfg,
+                             tcfg, cuda)
+    batch = _train_batch(cuda)
+    mods = (fa, ssd_mod, dec, gmm_mod)
+    before = [m.launches for m in mods]
+    grads, _ = build_grad_fn(cfg, tcfg)(state["params"], batch)
+    names = [name for name, _ in _flat(grads)]
+    for need in needs:
+        assert any(need in n for n in names), need
+    for name, g in _flat(grads):
+        assert g.dtype == torch.float32, name
+        assert torch.isfinite(g).all(), name
+        assert g.abs().max() > 0, f"{name}: zero gradient"
+    _, metrics = build_train_step(cfg, tcfg)(state, batch)
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert [m.launches for m in mods] == before     # no kernel on this path
+
+
+@pytest.mark.cuda
+def test_bf16_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    from repro_torch.distributed import CheckpointManager
+    tree = {"w": torch.randn((5, 7), device=cuda).to(torch.bfloat16),
+            "b": {"x": torch.arange(6, dtype=torch.float32, device=cuda)},
+            "step": torch.tensor(3, dtype=torch.int32, device=cuda)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, tree)
+    step, got, _ = mgr.restore(device=cuda)
+    assert step == 3
+    for (name, a), (_, b) in zip(_flat(got), _flat(tree)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype, name
+        assert torch.equal(a, b), name
+    assert torch.equal(got["w"].view(torch.int16), tree["w"].view(torch.int16))
+
+
+def _grad_inputs(name, device):
+    """Small inputs of each kernel's ``ops`` wrapper on the card, bf16 where
+    the kernel takes it; the first one will require grad."""
+    g = torch.Generator(device=device).manual_seed(0)
+    bf = torch.bfloat16
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+    if name == "flash_attention":
+        return (r(1, 64, 2, 64, dtype=bf), r(1, 64, 2, 64, dtype=bf),
+                r(1, 64, 2, 64, dtype=bf)), {}
+    if name == "ssd":
+        return ((r(1, 64, 2, 16, dtype=bf),
+                 torch.rand((1, 64, 2), generator=g, device=device),
+                 -torch.ones(2, device=device), r(1, 64, 16), r(1, 64, 16),
+                 torch.ones(2, device=device)), {"chunk": 32})
+    if name == "decode_attention":
+        return ((r(1, 2, 64, dtype=bf), r(1, 128, 2, 64, dtype=bf),
+                 r(1, 128, 2, 64, dtype=bf),
+                 torch.tensor([70], dtype=torch.int32, device=device)), {})
+    return ((r(96, 64, dtype=bf), r(2, 64, 64, dtype=bf),
+             torch.tensor([40, 56], dtype=torch.int32, device=device)), {})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention", "ssd", "decode_attention",
+                                  "gmm"])
+def test_kernels_raise_on_inputs_that_require_grad(cuda, name):
+    from repro_torch.kernels import ops
+    args, kw = _grad_inputs(name, cuda)
+    fn = getattr(ops, name)
+    want = fn(*args, **kw)                  # plain tensors: the kernel runs
+    args = (args[0].clone().requires_grad_(),) + args[1:]
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        fn(*args, **kw)
+    with torch.no_grad():                   # and no_grad lets it run again
+        got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, b)

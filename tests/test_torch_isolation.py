@@ -28,6 +28,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert "repro_torch.kernels.ops" in mods and "repro_torch.launch.serve" in mods
     assert {"repro_torch.scenarios.arrivals",
             "repro_torch.scenarios.trace"} <= set(mods)
+    assert {"repro_torch.training.train", "repro_torch.distributed.checkpoint",
+            "repro_torch.data.pipeline", "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -60,19 +62,23 @@ def test_forbidden_pattern_catches_what_it_should():
 
 
 @pytest.mark.parametrize("entry", ["build_handle", "LM", "init_params",
-                                   "from_jax_params"])
-def test_entry_points_raise_without_cuda(entry, monkeypatch):
+                                   "from_jax_params", "Trainer", "restore"])
+def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch.configs import smoke_config
     from repro_torch.convert import from_jax_params
+    from repro_torch.distributed import CheckpointManager
     from repro_torch.launch.serve import build_handle
     from repro_torch.models import LM, init_params
+    from repro_torch.training import TrainConfig, Trainer
     cfg = smoke_config("gemma-2b")
     calls = {
         "build_handle": lambda: build_handle("gemma-2b", "x", layers=1),
         "LM": lambda: LM(cfg),
         "init_params": lambda: init_params(torch.Generator(), cfg),
         "from_jax_params": lambda: from_jax_params({"a": [1.0]}),
+        "Trainer": lambda: Trainer(cfg=cfg, tcfg=TrainConfig(), data=iter(())),
+        "restore": lambda: CheckpointManager(str(tmp_path)).restore(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
