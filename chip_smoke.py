@@ -24,9 +24,10 @@ Phases, each of which raises (exit code != 0) on any failure:
    that theirs rejects the scan run as two halves with the state not
    carried across the split and the scan run with dt shifted by one
    position (each margin printed); every flash call names the kernel it
-   launched (the wgmma kernel for bf16) and every SSD call launches each of
-   its four kernels once, which the serving, decode and MoE phases check on
-   their launch counters;
+   launched (the wgmma kernel for bf16), which the serving, decode and MoE
+   phases check on their launch counters, and every SSD call launches each
+   of its four kernels once by the profiler's kernel names (as phase 7's
+   profiled prefills do);
 4. model check: the four architectures at smoke width, float32, forward on
    the card (kernels) against forward on the CPU (plain versions);
 5. serving: the serve_rtmm workload through ``repro_torch.launch.serve`` and
@@ -99,11 +100,32 @@ Phases, each of which raises (exit code != 0) on any failure:
    uninterrupted run's bit for bit under deterministic algorithms; the
    final checkpoint restored into an ``LM`` and served by a 1024-token
    prefill through the SSD kernel, each call held against float32 as in
-   phase 5, the logits against the float32 torch forward.
+   phase 5, the logits against the float32 torch forward;
+11. the device mesh and the dry-run, under an NCCL process group of one
+   rank (a ``HashStore``), destroyed at the end: gemma2-2b at phase 10's
+   config for 3 steps through ``Trainer`` on the one-device
+   ``DeviceMesh("cuda", (1, 1), ("data", "model"))`` with ``rules_for``'s
+   table, its metrics and final params equal bit for bit to a mesh-less
+   ``Trainer``'s of the same seed and steps under phase 10's deterministic
+   settings (step ms beside phase 10's); the dry-run's argument bytes at
+   that mesh equal to the Trainer's state and batch on the card, and its
+   counted FLOPs to ``FlopCounterMode``'s count of a fourth real step
+   (model_flops over them printed); mamba2-130m's step-2 checkpoint from
+   phase 10 (written with no mesh) restored onto the mesh through
+   ``restore(mesh=..., placements=...)`` and resumed, its trajectory equal to
+   phase 10's uninterrupted run bit for bit and its final state to phase
+   10's last checkpoint, and its params, gathered with ``full_tensor()``,
+   serving phase 10's 1024-token prefill through the SSD kernel with logits
+   equal to phase 10's bit for bit; then the dry-run over all 33 cells,
+   counted once each on meta tensors and reported for the (16, 16) and
+   (2, 16, 16) meshes (compute and memory terms, the dominant one, the
+   argument GB per device), with the phase's seconds. No train or mesh run
+   launches a kernel; only the restored prefill adds SSD launches.
 
 The ``kernels`` line's launches add up each kernel's counted runs: flash
 over the two serving runs and the counted prefills of phases 7-9, SSD over
-the serving runs, the counted prefills and phase 10's restored prefill,
+the serving runs, the counted prefills and the restored prefills of phases
+10 and 11,
 decode attention over the steps of phases 7-9, gmm over the MoE runs.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
@@ -423,18 +445,55 @@ def ssd_inputs(torch, gen, b, s, h, p, n, dtype):
     return x, dt, A, B, C, D
 
 
-def ssd_by_kernel(ssd_mod, what: str) -> None:
-    """Every SSD call launches the four kernels of ``csrc/ssd.cu`` once."""
-    by = dict(ssd_mod.kernel_launches)
-    log(f"[kernels] {what}: ssd launches by kernel {by}")
-    if by != dict.fromkeys(by, ssd_mod.launches):
-        raise AssertionError(f"{what}: ssd kernel launches {by}, expected "
-                             f"{ssd_mod.launches} of each")
+#: the four kernels of csrc/ssd.cu, which every SSD call launches in order
+SSD_KERNELS = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
+               "ssd_out_kernel")
+
+
+#: seconds the profiled calls wait inside the profiling window before
+#: they start: kernels launched right after the profiler starts can be
+#: missing from its records (the card tests once saw a call's first two
+#: kernels of four absent, and single-kernel calls with none)
+PROFILE_SETTLE_S = 0.02
+
+
+def kernel_rows(torch, fn):
+    """(the device kernels one synchronised call of ``fn`` runs, as
+    (self us, count, name) rows by the profiler's names, ``fn``'s result)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_SETTLE_S)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    return rows, out
+
+
+def check_ssd_launches(rows, calls: int, label: str) -> None:
+    """A profiled run (``rows`` from ``kernel_rows`` or ``profile_fn``)
+    must launch each of the four SSD kernels ``calls`` times, by the
+    profiler's kernel names."""
+    by_name = dict.fromkeys(SSD_KERNELS, 0)
+    for _, count, key in rows:
+        for name in SSD_KERNELS:
+            if name in key:
+                by_name[name] += count
+    want = dict.fromkeys(SSD_KERNELS, calls)
+    if by_name != want:
+        raise AssertionError(f"{label}: ssd kernels by name {by_name}, "
+                             f"expected {want}")
+    return by_name
 
 
 def reset_ssd_counters(ssd_mod) -> None:
     ssd_mod.launches = 0
-    ssd_mod.kernel_launches = dict.fromkeys(ssd_mod.kernel_launches, 0)
 
 
 def check_ssd(torch, gen):
@@ -457,12 +516,12 @@ def check_ssd(torch, gen):
                                          D, chunk=min(ch, s))
                 return y[:, :s], fin
 
-            before = dict(ssd_mod.kernel_launches)
-            y, fin = run()
-            torch.cuda.synchronize()
-            if ssd_mod.kernel_launches != {k: v + 1 for k, v in before.items()}:
-                raise AssertionError(f"ssd {label} {dname}: the four kernels "
-                                     f"were not each launched once")
+            before = ssd_mod.launches
+            rows, (y, fin) = kernel_rows(torch, run)
+            if ssd_mod.launches != before + 1:
+                raise AssertionError(f"ssd {label} {dname}: launches "
+                                     f"{ssd_mod.launches - before}, not 1")
+            check_ssd_launches(rows, 1, f"ssd {label} {dname}")
             y_ref, fin_ref = plain()
             tol = SSD_TOL_FP32 if dname == "float32" else TOL[dname]
             err = compare(f"ssd {label} {dname} y", y, y_ref, tol)
@@ -779,7 +838,6 @@ def serve(torch) -> dict:
         report = engine.run(q, duration_s=duration_s)
         launches = {"flash_attention": fa.launches, "ssd": ssd_mod.launches}
         flash_by_kernel(fa, what)
-        ssd_by_kernel(ssd_mod, what)
         log(f"[serve] {what}: model calls {calls}; kernel launches {launches}")
         want_flash = sum(calls[n] * attn_layers[n] for n in calls)
         want_ssd = calls["kws"] * kws.cfg.num_layers
@@ -878,6 +936,8 @@ def profile_fn(torch, label: str, fn) -> list:
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_SETTLE_S)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -1209,7 +1269,6 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
             raise AssertionError(f"{arch} prefill: launches {launches}, "
                                  f"expected {want_l}")
         flash_by_kernel(fa, f"{arch} prefill of {prompt}")
-        ssd_by_kernel(ssd_mod, f"{arch} prefill of {prompt}")
         nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         del logits, pcalls
         fed, outs, step_ms = [], [], []
@@ -1299,6 +1358,11 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
                       lambda: M.prefill(params, cfg, tokens, cache,
                                         frontend=fe))
     check_flash_launches(rows, heads, f"{arch} prefill")
+    ssd_calls = sum(c[0] == "ssd" for c in prefill_calls)
+    by_name = check_ssd_launches(rows, ssd_calls, f"{arch} prefill")
+    if ssd_calls:
+        log(f"[decode] {arch} prefill: ssd kernels by name in one profiled "
+            f"call {by_name}, {ssd_calls} of each expected")
     del params, cache, dec_logits, fwd, want
     torch.cuda.empty_cache()
     return dict(launches=launches, ms_per_token=med, prefill_ms=prefill_ms)
@@ -1848,7 +1912,8 @@ def reset_kernel_counters() -> None:
     """Every kernel's launch counters to 0."""
     for mod in kernel_modules().values():
         mod.launches = 0
-        mod.kernel_launches = dict.fromkeys(mod.kernel_launches, 0)
+        if hasattr(mod, "kernel_launches"):
+            mod.kernel_launches = dict.fromkeys(mod.kernel_launches, 0)
 
 
 class no_kernel_launch:
@@ -1930,12 +1995,12 @@ def check_train_smoke(torch) -> None:
             f"no kernel launched")
 
 
-def train_full_width(torch, card: str) -> None:
+def train_full_width(torch, card: str) -> float:
     """gemma2-2b at its published config (26 layers, vocab 256000), bf16
     compute over float32 master params and AdamW state, through ``Trainer``
     for TRAIN_FULL_WIDTH's steps: step time (host clock around each step,
     which ends on reading its metrics), tokens/s, peak memory and the
-    model-FLOPs share of the bf16 peak."""
+    model-FLOPs share of the bf16 peak. Returns the median step ms."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMData
     from repro_torch.models import model as M
@@ -2001,9 +2066,10 @@ def train_full_width(torch, card: str) -> None:
                    f" x {seq})", one_step)
     del trainer, hist
     torch.cuda.empty_cache()
+    return med
 
 
-def train_restart(torch) -> dict:
+def train_restart(torch) -> tuple[dict, dict]:
     """mamba2-130m at its published config, bf16 compute, ``accum``
     microbatches and int8 gradient compression, checkpointing every
     ``ckpt every`` steps: a run preempted by ``FaultInjector`` and resumed
@@ -2013,7 +2079,10 @@ def train_restart(torch) -> dict:
     served: a 1024-token prefill through the kernels, each SSD call held
     against the float32 plain version (BF16_REL_L2) and the logits against
     the float32 torch forward (within twice the bf16 torch forward's
-    error). Returns the prefill's launches."""
+    error). Returns the prefill's launches, and what phase 11 resumes from
+    and holds its run to: the checkpoint directory (its ``TemporaryDirectory``;
+    phase 11 cleans it up), the uninterrupted run's metrics, the prompt and
+    the prefill's logits."""
     import tempfile
     import warnings
     from repro_torch.configs import get_config
@@ -2021,7 +2090,6 @@ def train_restart(torch) -> dict:
     from repro_torch.data import SyntheticLMData
     from repro_torch.distributed import (CheckpointManager, CompressionConfig,
                                          FaultInjector, SimulatedPreemption)
-    from repro_torch.kernels import ssd as ssd_mod
     from repro_torch.models import LM
     from repro_torch.models import model as M
     from repro_torch.training import OptimConfig, TrainConfig, Trainer
@@ -2100,7 +2168,6 @@ def train_restart(torch) -> dict:
     torch.cuda.empty_cache()
 
     step, state, _ = CheckpointManager(ckpt).restore(device="cuda")
-    tmp.cleanup()
     if step != steps:
         raise AssertionError(f"{arch}: last checkpoint at step {step}")
     lm = LM(cfg, to_compute_dtype(state["params"], M.compute_dtype(cfg)),
@@ -2123,7 +2190,6 @@ def train_restart(torch) -> dict:
         if launches != want_l:
             raise AssertionError(f"{arch} prefill: launches {launches}, "
                                  f"expected {want_l}")
-        ssd_by_kernel(ssd_mod, f"{arch} restored prefill of {prompt}")
         want = M.forward(p32, dataclasses.replace(cfg, dtype="float32"),
                          tokens, "torch", "torch")[0]
         kern = rel_l2(logits, want)
@@ -2137,16 +2203,293 @@ def train_restart(torch) -> dict:
     if not kern <= gate:
         raise AssertionError(f"{arch}: restored prefill off by {kern}, above "
                              f"{gate}")
+    handoff = dict(tmp=tmp, ref_hist=ref_hist, tokens=tokens,
+                   logits=logits.cpu(), nondet=nondet)
     del lm, p32, cache, logits, want
+    torch.cuda.empty_cache()
+    return launches, handoff
+
+
+def train_phase(torch, card: str) -> tuple[dict, float, dict]:
+    """Returns the restored prefill's launches, gemma2-2b's median step ms
+    and ``train_restart``'s hand-off to phase 11."""
+    torch.cuda.empty_cache()
+    check_train_smoke(torch)
+    step_ms = train_full_width(torch, card)
+    launches, handoff = train_restart(torch)
+    return launches, step_ms, handoff
+
+# ---------------------------------------------------------------------------
+# phase 11: the device mesh and the dry-run
+# ---------------------------------------------------------------------------
+
+#: phase 11's mesh train run: phase 10's gemma2-2b run, the same optimizer
+#: schedule, cut to its first steps
+MESH_TRAIN_STEPS = 3
+
+
+class deterministic:
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` inside
+    (phase 10's setting); ``.nondet`` lists the ops that warned of having no
+    deterministic kernel."""
+
+    def __enter__(self):
+        import warnings
+        import torch
+        self._torch = torch
+        self._catch = warnings.catch_warnings(record=True)
+        self._caught = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        self._torch.use_deterministic_algorithms(False)
+        self._catch.__exit__(*exc)
+        self.nondet = sorted({str(w.message) for w in self._caught
+                              if "deterministic" in str(w.message)})
+        return False
+
+
+def state_nbytes(tree) -> int:
+    """Bytes of every leaf of a state tree on this rank (a DTensor's local
+    shard)."""
+    from torch.distributed.tensor import DTensor
+    return sum((x.to_local() if isinstance(x, DTensor) else x).nbytes
+               for _, x in flat_tree(tree))
+
+
+def mesh_train(torch, card: str, mesh, phase10_ms: float) -> None:
+    """gemma2-2b at phase 10's config through ``Trainer(mesh=..., rules=
+    rules_for(...))`` on the one-device mesh: its losses, metrics and final
+    params equal, bit for bit, a mesh-less ``Trainer``'s of the same seed
+    over the same steps under phase 10's deterministic settings (the
+    mesh-less run first, its params kept on the host, then freed). Then
+    the two ties to the dry-run at this mesh: its argument bytes against
+    the Trainer's state and batch on the card, and its counted FLOPs
+    against ``FlopCounterMode``'s count of one more real step."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.training import OptimConfig, TrainConfig, Trainer
+
+    arch, seq, batch, steps10 = TRAIN_FULL_WIDTH
+    steps = MESH_TRAIN_STEPS
+    cfg = get_config(arch)
+    tcfg = TrainConfig(optim=OptimConfig(learning_rate=3e-3,
+                                         warmup_steps=steps10 // 10,
+                                         total_steps=steps10))
+    cell = ShapeCell(f"train_{seq}", seq, batch, "train")
+    rules = rules_for(cfg, mesh, cell)
+
+    def trainer(m):
+        data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq,
+                               global_batch=batch, seed=0)
+        t = Trainer(cfg=cfg, tcfg=tcfg, data=iter(data), mesh=m,
+                    rules=rules if m is not None else None, log_every=1000,
+                    device="cuda")
+        t.init_or_resume(resume="never")
+        return t
+
+    torch.cuda.empty_cache()
+    with no_kernel_launch(f"{arch} mesh-less training"), \
+            deterministic() as det0:
+        plain = trainer(None)
+        want_hist = plain.run(steps)
+    plain_ms = [t * 1e3 for t in plain.straggler.times]
+    want = {n: x.cpu() for n, x in flat_tree(plain.state["params"])}
+    del plain
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with no_kernel_launch(f"{arch} mesh training"), deterministic() as det1:
+        tr = trainer(mesh)
+        hist = tr.run(steps)
+    peak = torch.cuda.max_memory_allocated()
+    mesh_ms = [t * 1e3 for t in tr.straggler.times]
+    leaves = flat_tree(tr.state["params"])
+    if not all(isinstance(x, DTensor) for _, x in leaves):
+        raise AssertionError(f"{arch}: the mesh Trainer's params are not "
+                             f"DTensors")
+    if hist != want_hist:
+        raise AssertionError(f"{arch}: mesh metrics {hist}, mesh-less "
+                             f"{want_hist}")
+    for n, x in leaves:
+        if not torch.equal(x.full_tensor().cpu(), want[n]):
+            raise AssertionError(f"{arch}: mesh param {n} differs from the "
+                                 f"mesh-less run's")
+    del want
+    log(f"[mesh] {arch} (published config, bf16 compute) through Trainer on "
+        f"the one-device DeviceMesh {tuple(mesh.shape)} "
+        f"{mesh.mesh_dim_names}, rules_for the {seq} x {batch} cell, batch "
+        f"{batch} x {seq}, {steps} steps under deterministic algorithms: "
+        f"losses {[m['loss'] for m in hist]} equal the mesh-less Trainer's "
+        f"bit for bit, every metric and the final params too; ops without "
+        f"a deterministic kernel: mesh-less {det0.nondet}, mesh "
+        f"{det1.nondet}; step ms mesh {mesh_ms}, mesh-less (this phase) "
+        f"{plain_ms}, phase 10's median {phase10_ms}; mesh run peak memory "
+        f"{peak} bytes; {card}")
+
+    res = D.count_cell(arch, cell, mesh, verbose=False)
+    have = state_nbytes(tr.state)
+    batch_bytes = 2 * batch * seq * 4          # tokens and labels, int32
+    if res["memory"]["state_bytes"] != have or \
+            res["memory"]["argument_bytes"] != have + batch_bytes:
+        raise AssertionError(f"{arch}: dry-run argument bytes "
+                             f"{res['memory']}, the card's state {have} and "
+                             f"batch {batch_bytes}")
+    with no_kernel_launch(f"{arch} counted mesh step"), \
+            FlopCounterMode(display=False) as fc:
+        tr.run(steps + 1)
+    real = fc.get_total_flops()
+    if real != res["flops"]:
+        raise AssertionError(f"{arch}: dry-run FLOPs {res['flops']}, "
+                             f"FlopCounterMode on the card {real}")
+    log(f"[mesh] {arch}: dry-run at mesh {res['mesh']} vs the card: argument "
+        f"bytes {res['memory']['argument_bytes']} = the Trainer's state "
+        f"{have} + the batch {batch_bytes}; counted FLOPs of a step "
+        f"{res['flops']} = FlopCounterMode's count of step {steps + 1} on "
+        f"the card {real}; model_flops / counted (useful_flops_ratio) "
+        f"{res['model_flops'] / real}; the dry-run's terms compute "
+        f"{res['terms_s']['compute_s'] * 1e3} ms, memory "
+        f"{res['terms_s']['memory_s'] * 1e3} ms against step ms {mesh_ms}")
+    del tr
+    torch.cuda.empty_cache()
+
+
+def mesh_restart(torch, mesh, handoff: dict) -> dict:
+    """Phase 10's mamba2-130m run resumed on the mesh: its step-``every``
+    checkpoint, written without a mesh, restored onto the mesh through
+    ``Trainer(mesh=...)`` (``restore(mesh=..., placements=...)``) and run to
+    the end under deterministic algorithms: metrics equal to phase 10's
+    uninterrupted run bit for bit, and the final state to phase 10's final
+    checkpoint. The params, gathered with ``full_tensor()``, serve phase 10's
+    1024-token prompt through the SSD kernel: logits equal phase 10's
+    restored prefill bit for bit. Returns the prefill's launches."""
+    import shutil
+    import tempfile
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.convert import to_compute_dtype
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import CheckpointManager, CompressionConfig
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import LM
+    from repro_torch.models import model as M
+    from repro_torch.training import OptimConfig, TrainConfig, Trainer
+
+    arch, seq, batch, accum, steps, fail_at, every = TRAIN_RESTART
+    cfg = get_config(arch)
+    tcfg = TrainConfig(optim=OptimConfig(learning_rate=3e-3,
+                                         warmup_steps=steps // 10,
+                                         total_steps=steps),
+                       accum=accum, compression=CompressionConfig())
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq,
+                           global_batch=batch, seed=1)
+    src = handoff["tmp"].name
+    start = every
+    name = f"step_{start:08d}"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        shutil.copytree(os.path.join(src, name), os.path.join(ckpt, name))
+        rules = rules_for(cfg, mesh, ShapeCell(f"train_{seq}", seq, batch,
+                                               "train"))
+        with no_kernel_launch(f"{arch} mesh training"), \
+                deterministic() as det:
+            tr = Trainer(cfg=cfg, tcfg=tcfg,
+                         data=iter(data.batch(s) for s in range(start, steps)),
+                         ckpt_dir=ckpt, ckpt_every=every, mesh=mesh,
+                         rules=rules, log_every=1000, device="cuda")
+            tr.init_or_resume(resume="must")
+            if tr.step != start or not all(
+                    isinstance(x, DTensor) for _, x in flat_tree(tr.state)):
+                raise AssertionError(f"{arch}: restored at step {tr.step}, "
+                                     f"not onto the mesh at {start}")
+            hist = tr.run(steps)
+    want = handoff["ref_hist"][start:]
+    if hist != want:
+        raise AssertionError(f"{arch}: mesh-resumed metrics {hist}, "
+                             f"uninterrupted {want}")
+    _, final, _ = CheckpointManager(src).restore(step=steps, device="cuda")
+    for (n, a), (_, b) in zip(flat_tree(tr.state), flat_tree(final)):
+        if not torch.equal(a.full_tensor(), b):
+            raise AssertionError(f"{arch}: mesh-resumed state {n} differs "
+                                 f"from phase 10's step-{steps} checkpoint")
+    params = M.tree_map(lambda x: x.full_tensor(), tr.state["params"])
+    del tr, final
+    log(f"[mesh] {arch} (published config, accum {accum}, int8 "
+        f"compression): phase 10's step-{start} checkpoint (no mesh) "
+        f"restored onto the mesh as DTensors and resumed to step {steps}: "
+        f"losses {[m['loss'] for m in hist]} equal the uninterrupted run's "
+        f"bit for bit, every metric too, and the final state phase 10's "
+        f"step-{steps} checkpoint; ops without a deterministic kernel "
+        f"{det.nondet} ({time.perf_counter() - t0:.1f} s)")
+
+    lm = LM(cfg, to_compute_dtype(params, M.compute_dtype(cfg)),
+            device="cuda")
+    tokens = handoff["tokens"]
+    with torch.inference_mode():
+        cache = lm.init_cache(1, tokens.shape[1])
+        reset_kernel_counters()
+        logits, _ = lm.prefill(tokens, cache)
+        launches = kernel_counts()
+    want_l = dict.fromkeys(launches, 0) | {"ssd": cfg.num_layers}
+    if launches != want_l:
+        raise AssertionError(f"{arch} mesh-restored prefill: launches "
+                             f"{launches}, expected {want_l}")
+    if not torch.equal(logits.cpu(), handoff["logits"]):
+        err = (logits.cpu() - handoff["logits"]).abs().max().item()
+        raise AssertionError(f"{arch}: the mesh-restored prefill's logits "
+                             f"differ from phase 10's (max abs {err})")
+    log(f"[mesh] {arch}: the mesh-resumed params, gathered, serve phase 10's "
+        f"{tokens.shape[1]}-token prefill through the SSD kernel: logits "
+        f"equal phase 10's restored prefill bit for bit; launches {launches}")
+    handoff["tmp"].cleanup()
+    del lm, params, cache, logits
     torch.cuda.empty_cache()
     return launches
 
 
-def train_phase(torch, card: str) -> dict:
-    torch.cuda.empty_cache()
-    check_train_smoke(torch)
-    train_full_width(torch, card)
-    return train_restart(torch)
+def dryrun_phase() -> None:
+    """Every applicable (arch, shape) cell counted once on meta tensors and
+    reported for the (16, 16) and (2, 16, 16) meshes: one line a cell and
+    mesh, then the seconds it took."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.launch import dryrun as D
+
+    t0 = time.perf_counter()
+    results = D.run_cells(list(ARCH_IDS), list(SHAPES), ["single", "multipod"],
+                          out_dir=str(ROOT / "build" / "dryrun_torch"))
+    bad = [r for r in results if r.get("status") != "ok"]
+    if bad or len(results) != 2 * 33:
+        raise AssertionError(f"dry-run: {len(results)} results, failed "
+                             f"{[(r['arch'], r['shape'], r['mesh']) for r in bad]}")
+    over = [(r["arch"], r["shape"], r["mesh"]) for r in results
+            if r["over_hbm"]]
+    log(f"[dryrun] 33 cells x 2 meshes counted on meta tensors in "
+        f"{time.perf_counter() - t0:.1f} s (one count a cell); argument "
+        f"bytes over the card's 80 GB: {over or 'none'}")
+
+
+def mesh_phase(torch, card: str, phase10_ms: float, handoff: dict) -> dict:
+    """Phase 11 under an NCCL process group of one rank (a ``HashStore``),
+    destroyed at the end. Returns the mesh-restored prefill's launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        mesh_train(torch, card, mesh, phase10_ms)
+        launches = mesh_restart(torch, mesh, handoff)
+        dryrun_phase()
+    finally:
+        dist.destroy_process_group()
+    return launches
 
 
 def main() -> int:
@@ -2207,18 +2550,25 @@ def main() -> int:
 
     # 10. training
     t_train = time.perf_counter()
-    train_launches = train_phase(torch, card)
+    train_launches, train_ms, handoff = train_phase(torch, card)
+
+    # 11. the device mesh and the dry-run
+    t_mesh = time.perf_counter()
+    mesh_launches = mesh_phase(torch, card, train_ms, handoff)
     log(f"[time] phases 1-7 {t_moe - t_start:.1f} s, phase 8 (MoE) "
         f"{t_archs - t_moe:.1f} s, phase 9 (archs) "
         f"{t_train - t_archs:.1f} s, phase 10 (training) "
-        f"{time.perf_counter() - t_train:.1f} s")
+        f"{t_mesh - t_train:.1f} s, phase 11 (mesh and dry-run) "
+        f"{time.perf_counter() - t_mesh:.1f} s")
     log(f"[launches] serving {launches}, decode {dec_launches}, MoE "
-        f"{moe_launches}, archs {arch_launches}, training {train_launches}")
+        f"{moe_launches}, archs {arch_launches}, training {train_launches}, "
+        f"mesh {mesh_launches}")
     launches = sum_launches([{"launches": launches},
                              {"launches": dec_launches},
                              {"launches": moe_launches},
                              {"launches": arch_launches},
-                             {"launches": train_launches}])
+                             {"launches": train_launches},
+                             {"launches": mesh_launches}])
 
     kernels = [
         dict(name="flash_attention", route="cuda",

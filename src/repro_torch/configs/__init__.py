@@ -8,6 +8,9 @@ published configuration) and the registry maps ``--arch <id>`` to it.
 compare equal under ``dataclasses.asdict``. ``ssm_impl`` and ``moe_impl``
 name the JAX package's paths; the port chooses its own path with the
 ``*_impl`` arguments of ``models.model.forward``.
+
+``ShapeCell``, ``SHAPES`` and ``cell_applicable`` are the JAX package's
+input-shape cells (the dry-run's grid), copied.
 """
 from __future__ import annotations
 
@@ -82,6 +85,17 @@ class ArchConfig:
             return self.head_dim
         return self.d_model // self.num_heads if self.num_heads else 0
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic (in decode-KV) archs: SSM, hybrid, and local+global
+        dense models whose global layers are linear in KV at decode."""
+        return self.family in ("ssm", "hybrid") or (
+            self.local_window is not None and "local" in self.layer_pattern)
+
 
 #: arch-id -> module name
 _REGISTRY = {
@@ -132,3 +146,30 @@ def smoke_config(arch: str) -> ArchConfig:
     if cfg.shared_attn_every:
         updates.update(shared_attn_every=2, num_layers=4)
     return replace(cfg, **updates)
+
+
+# --------------------------------------------------------------------------
+# Input shape cells (the per-arch shape set of the dry-run)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ArchConfig, shape: str) -> bool:
+    """long_500k only runs on sub-quadratic archs."""
+    if shape == "long_500k":
+        return cfg.supports_long_context
+    return True

@@ -11,8 +11,7 @@ per-host sharded: each host materializes only its slice of the global batch
 Determinism: batch i of run (seed) is identical regardless of host count or
 restart point, which exact checkpoint-resume equivalence needs.
 
-``batch_spec`` (the reference's shapes for its dry-run) waits for the
-port's dry-run (ROADMAP, queue A item 5).
+``batch_spec`` is one global batch as meta tensors, for the dry-run.
 """
 from __future__ import annotations
 
@@ -20,8 +19,16 @@ from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from ..training.loss import IGNORE
+
+
+def batch_spec(global_batch: int, seq_len: int) -> dict:
+    """One global batch as meta int32 tensors (shapes and dtypes, no data;
+    the reference's ShapeDtypeStructs)."""
+    return {k: torch.empty((global_batch, seq_len), dtype=torch.int32,
+                           device="meta") for k in ("tokens", "labels")}
 
 
 @dataclass

@@ -24,12 +24,19 @@ Guarantees
   ones are removed after a successful save (never before), and so are
   temporary directories of crashed writers older than an hour.
 
-One process writes shard 0. Restoring onto another device layout (the
-reference's ``shardings``) waits for the port's device mesh (ROADMAP, queue
-A item 4); ``restore`` puts the tree on one device.
+One process writes shard 0, so the arrays on disk always have their
+global shapes: rank 0 assembles each DTensor leaf on its host, its own
+shard copied and every other distinct shard received from one rank that
+holds it, so no card ever holds more of a leaf than its shard.
+``restore`` puts the tree on one device, or, given ``mesh`` and
+``placements`` (the reference's ``shardings``), reads each array at its
+global shape on the host and moves to each rank's card only that rank's
+shard of it (``DTensor.from_local``): a restore onto another mesh is the
+reshard. The host holds a whole array at a time in both.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -39,6 +46,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .. import resolve_device
 
@@ -64,6 +73,73 @@ def _unflatten(flat: dict[str, Any]) -> Any:
             node = node.setdefault(p, {})
         node[parts[-1]] = val
     return tree
+
+
+def _shard_slices(shape, mesh, placements, coord) -> tuple[slice, ...]:
+    """The part of a global array of ``shape`` that the rank at mesh
+    coordinate ``coord`` holds under ``placements``: DTensor's even split
+    (``torch.chunk``'s, the last chunks short or empty), mesh dimensions
+    applied in order."""
+    start, size = [0] * len(shape), list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            chunk = -(-size[p.dim] // mesh.size(i))
+            lo = min(coord[i] * chunk, size[p.dim])
+            start[p.dim] += lo
+            size[p.dim] = min(chunk, size[p.dim] - lo)
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"a checkpoint leaf placed {p}: only Shard and "
+                             f"Replicate are stored")
+    return tuple(slice(a, a + n) for a, n in zip(start, size))
+
+
+def _mesh_ranks(mesh) -> list[tuple[int, tuple[int, ...]]]:
+    """(global rank, mesh coordinate) of every rank of ``mesh``."""
+    return [(int(mesh.mesh[c]), c)
+            for c in itertools.product(*map(range, mesh.mesh.shape))]
+
+
+def _gather_to_host(t: DTensor, writer: int) -> Optional[torch.Tensor]:
+    """The global tensor of ``t`` on ``writer``'s host (None elsewhere).
+    Every rank of the mesh calls it; each distinct shard the writer does
+    not hold is sent to it once, by the first rank that holds it."""
+    mesh, me = t.device_mesh, dist.get_rank()
+    ranks = _mesh_ranks(mesh)
+    where = {r: _shard_slices(t.shape, mesh, t.placements, c)
+             for r, c in ranks}
+    key = lambda sl: tuple((x.start, x.stop) for x in sl)   # noqa: E731
+    sender: dict[tuple, int] = {key(where[writer]): writer}
+    for r, _ in ranks:
+        sender.setdefault(key(where[r]), r)
+    local = t.to_local().detach()
+    if me != writer:
+        if sender[key(where[me])] == me and local.numel():
+            dist.send(local.contiguous(), dst=writer)
+        return None
+    out = torch.empty(t.shape, dtype=t.dtype)
+    for r in sender.values():
+        sl = where[r]
+        if r == writer:
+            out[sl] = local.cpu()
+        elif out[sl].numel():
+            buf = torch.empty(out[sl].shape, dtype=t.dtype,
+                              device=local.device)
+            dist.recv(buf, src=r)
+            out[sl] = buf.cpu()
+    return out
+
+
+def _local_shard(arr: np.ndarray, dtype: str, mesh, placements,
+                 dev: torch.device) -> DTensor:
+    """This rank's shard of the global array ``arr`` (on the host) on its
+    card, as a DTensor of ``arr``'s global shape."""
+    part = np.ascontiguousarray(arr[_shard_slices(
+        arr.shape, mesh, placements, mesh.get_coordinate())]) if arr.ndim \
+        else arr
+    local = _to_tensor(part, dtype).to(dev)
+    whole = torch.empty(arr.shape, device="meta")
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=whole.shape, stride=whole.stride())
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -112,7 +188,22 @@ class CheckpointManager:
 
     # -------------------------------------------------------------- save
     def save(self, step: int, tree: Any, extra: Optional[dict] = None) -> str:
+        """Write ``tree`` as checkpoint ``step`` (atomically). With a
+        process group, every rank calls it (rank 0 gathers the DTensor
+        leaves to its host and writes), and it returns on each rank once
+        the checkpoint is complete."""
+        group = dist.is_available() and dist.is_initialized()
         flat = _flatten(tree)
+        flat = {k: _gather_to_host(v, 0) if isinstance(v, DTensor) else v
+                for k, v in flat.items()}
+        if not group or dist.get_rank() == 0:
+            self._write(step, flat, extra)
+        if group and dist.get_world_size() > 1:
+            dist.barrier()
+        return self._step_dir(step)
+
+    def _write(self, step: int, flat: dict[str, torch.Tensor],
+               extra: Optional[dict]) -> None:
         nonce = f"{os.getpid()}-{int(time.time() * 1e6) & 0xFFFFFF:x}"
         final = self._step_dir(step)
         tmp = f"{final}.tmp-{nonce}"
@@ -136,7 +227,6 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.rename(tmp, final)
         self._gc()
-        return final
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -154,11 +244,18 @@ class CheckpointManager:
     # ----------------------------------------------------------- restore
     def restore(self, step: Optional[int] = None,
                 device: str | torch.device = "cuda",
+                mesh=None, placements: Optional[Any] = None,
                 ) -> tuple[int, Any, dict]:
         """Load a checkpoint (the latest without ``step``) onto ``device``
-        (CUDA unless the caller asks for the CPU); raises on a checksum
-        mismatch."""
-        dev = resolve_device(device)
+        (CUDA unless the caller asks for the CPU), or with ``mesh`` and
+        ``placements`` (a tree of placement lists shaped like the saved
+        tree) onto the mesh's device as DTensors: each array is read at its
+        global shape on the host and each rank's shard of it moved to that
+        rank's card. Raises on a checksum mismatch."""
+        if (mesh is None) != (placements is None):
+            raise ValueError("restore onto a mesh takes both mesh and "
+                             "placements")
+        dev = resolve_device(mesh.device_type if mesh is not None else device)
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -172,5 +269,11 @@ class CheckpointManager:
             arr = flat[key]
             if _crc32(arr) != meta["crc32"]:
                 raise IOError(f"checksum mismatch for {key} in {path}")
-            flat[key] = _to_tensor(arr, meta["dtype"]).to(dev)
+            if mesh is None:
+                flat[key] = _to_tensor(arr, meta["dtype"]).to(dev)
+                continue
+            where = placements
+            for part in key.split(SEP):
+                where = where[part]
+            flat[key] = _local_shard(arr, meta["dtype"], mesh, where, dev)
         return step, _unflatten(flat), manifest.get("extra", {})

@@ -7,16 +7,24 @@ trajectory unbiased: the 1-bit-Adam / EF-SGD recipe. The quantize ->
 dequantize round trip happens before the optimizer update and reproduces
 the exact value loss of the int8 representation. State (residuals) has the
 gradients' shapes.
+
+On a mesh the blocks run across the flattened global array, as without
+one. Where each rank's shard, flattened, is whole blocks of that array
+(``_shards_hold_whole_blocks``), each rank quantises its own shard;
+otherwise the gradient is made whole first (``placement.on_whole``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..models.model import tree_leaves, tree_map
+from ..placement import on_whole
 
 Tensor = torch.Tensor
 
@@ -28,8 +36,8 @@ class CompressionConfig:
 
 
 def init_error_state(params: Any) -> Any:
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 def _quant_dequant(g: Tensor, block: int) -> Tensor:
@@ -49,6 +57,38 @@ def _quant_dequant(g: Tensor, block: int) -> Tensor:
     return deq.reshape(-1)[:n].reshape(g.shape)
 
 
+def _shards_hold_whole_blocks(x: DTensor, block: int) -> bool:
+    """Whether each rank's shard of ``x``, flattened, is whole blocks of
+    the flattened global array, in order: every placement is ``Shard`` or
+    ``Replicate``, each sharded dimension splits evenly, and the shard's
+    extent from its innermost sharded dimension on is a multiple of
+    ``block`` (each contiguous run of the shard in the global order starts
+    at a multiple of that extent)."""
+    ways: dict[int, int] = {}
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            ways[p.dim] = ways.get(p.dim, 1) * x.device_mesh.size(i)
+        elif not isinstance(p, Replicate):
+            return False
+    if any(x.shape[d] % k for d, k in ways.items()):
+        return False
+    if not ways:
+        return True
+    inner = max(ways)
+    run = x.shape[inner] // ways[inner] * math.prod(x.shape[inner + 1:])
+    return run % block == 0
+
+
+def _quantise(x: Tensor, block: int) -> Tensor:
+    """``_quant_dequant`` of ``x``; on a mesh on each rank's shard where
+    its shards are whole blocks, else on the whole gradient."""
+    if isinstance(x, DTensor) and _shards_hold_whole_blocks(x, block):
+        return DTensor.from_local(_quant_dequant(x.to_local(), block),
+                                  x.device_mesh, x.placements,
+                                  run_check=False)
+    return on_whole(lambda t: _quant_dequant(t, block), x)
+
+
 def compress_with_feedback(grads: Any, err: Any, cfg: CompressionConfig
                            ) -> tuple[Any, Any]:
     """Returns (compressed grads, new error state)."""
@@ -57,7 +97,7 @@ def compress_with_feedback(grads: Any, err: Any, cfg: CompressionConfig
 
     def one(g, e):
         s = g.float() + e
-        q = _quant_dequant(s, cfg.block)
+        q = _quantise(s, cfg.block)
         return q, s - q
 
     pairs = _zip_map(one, grads, err)

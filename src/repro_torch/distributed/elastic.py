@@ -1,14 +1,18 @@
-"""Elastic mesh sizing, straggler detection and fault injection (port of
+"""Elastic re-mesh, straggler detection and fault injection (port of
 ``repro/distributed/elastic.py``).
+
+Elastic re-mesh: when nodes join or leave, the runner rebuilds the mesh
+from the surviving ranks (``remesh``: the largest (data, model)
+factorization that keeps the model axis intact), then restores the latest
+checkpoint onto the new mesh: checkpoint arrays carry global shapes, so
+restore is the reshard (``CheckpointManager.restore(mesh=...,
+placements=...)``).
 
 Straggler mitigation: per-step watermark timing. The trainer records step
 wall times in a rolling window; a step slower than ``threshold`` x the
 rolling median flags a straggler event. The detector provides the signal;
 the response (swap the slow host out and restart elastically from the last
-checkpoint) is the restore path of ``CheckpointManager``.
-
-``remesh``, which builds the reference's device mesh from the surviving
-devices, waits for the port's device mesh (ROADMAP, queue A item 4).
+checkpoint) is the re-mesh and restore path above.
 """
 from __future__ import annotations
 
@@ -16,6 +20,10 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 
 def best_mesh_shape(n_devices: int, model_parallel: int) -> tuple[int, int]:
@@ -30,6 +38,26 @@ def best_mesh_shape(n_devices: int, model_parallel: int) -> tuple[int, int]:
     while mp > 1 and n_devices % mp:
         mp //= 2
     return max(n_devices // mp, 1), mp
+
+
+def remesh(world_size: Optional[int] = None, model_parallel: int = 1,
+           axis_names: tuple[str, str] = ("data", "model"),
+           device_type: Optional[str] = None) -> DeviceMesh:
+    """A (data, model) ``DeviceMesh`` over the first ranks of the
+    initialised process group, shaped by ``best_mesh_shape`` for
+    ``world_size`` ranks (the group's size by default), on ``device_type``
+    (CUDA when the group's backend is NCCL, else the CPU). Every rank of
+    the group calls it. Raises if no process group is initialised: it never
+    starts one itself."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("remesh needs an initialised process group "
+                           "(torch.distributed.init_process_group)")
+    n = dist.get_world_size() if world_size is None else world_size
+    dp, mp = best_mesh_shape(n, model_parallel)
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    ranks = torch.arange(dp * mp).reshape(dp, mp)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=axis_names)
 
 
 @dataclass

@@ -21,6 +21,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -156,10 +157,21 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 
 
-def check_no_grad(kernel: str, *tensors) -> None:
-    """Raise if autograd would need a backward through ``kernel``: no CUDA
-    kernel here has one, and its output is a fresh tensor without a graph,
-    so the gradients of everything upstream would silently be lost."""
+class DTensorInputError(TypeError):
+    """A DTensor given to a kernel binding: the kernel reads raw pointers,
+    which a DTensor's shard is not the whole of."""
+
+
+def check_inputs(kernel: str, *tensors) -> None:
+    """Raise on an input ``kernel`` cannot take: a DTensor
+    (``DTensorInputError``), or one that needs a backward through the
+    kernel (RuntimeError): no CUDA kernel here has one, and its output is a
+    fresh tensor without a graph, so the gradients of everything upstream
+    would silently be lost."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise DTensorInputError(
+            f"{kernel}: a DTensor input; the CUDA kernel takes plain tensors "
+            f"(gather with full_tensor(), or run impl='torch' on a mesh)")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{kernel}: an input requires grad, and the CUDA kernel has no "

@@ -139,7 +139,8 @@ def decode_attention(
     """Launch the CUDA kernel on CUDA tensors; returns [B, N, H] in q's
     dtype. Raises on anything the kernel does not take."""
     global launches
-    build.check_no_grad("decode_attention", q, k_cache, v_cache)
+    build.check_inputs("decode_attention", q, k_cache, v_cache,
+                       pos)
     if q.ndim != 3 or k_cache.ndim != 4:
         raise ValueError(f"shapes q {tuple(q.shape)}, cache "
                          f"{tuple(k_cache.shape)}: need [B,N,H] and [B,S,K,H]")

@@ -69,7 +69,7 @@ def flash_attention(
     """Launch the CUDA kernel on CUDA tensors; returns [B, Sq, N, H] in q's
     dtype. Raises on anything the kernel does not take."""
     global launches
-    build.check_no_grad("flash_attention", q, k, v)
+    build.check_inputs("flash_attention", q, k, v)
     b, sq, n, h = q.shape
     _, sk, kv, _ = k.shape
     if not (q.is_cuda and k.is_cuda and v.is_cuda):

@@ -67,7 +67,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor,
     w [E, D, F], group_sizes [E] int (summing to T). Returns [T, F] in x's
     dtype. Raises on anything the kernel does not take."""
     global launches
-    build.check_no_grad("gmm", x, w)
+    build.check_inputs("gmm", x, w, group_sizes)
     if x.ndim != 2 or w.ndim != 3 or group_sizes.ndim != 1:
         raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"group_sizes {tuple(group_sizes.shape)}: need [T,D], "

@@ -9,7 +9,10 @@ CUDA, and the decode kernel reads only the live rows of the cache, so it is
 never padded. Neither version of the grouped matmul is padded. A CUDA
 tensor never falls back to the plain version, and no kernel has a backward
 pass: on CUDA, an input that requires grad under grad mode raises
-(``build.check_no_grad``) where the plain version would differentiate.
+(``build.check_inputs``) where the plain version would differentiate, and
+so does a DTensor (``build.DTensorInputError``): a kernel reads raw
+pointers, and a shard is not the whole tensor. Meta tensors (the dry-run's)
+take the plain version, which computes shapes only.
 """
 from __future__ import annotations
 
@@ -34,13 +37,17 @@ def _pad_seq(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors (the kernel), False for CPU or meta tensors
+    (the plain version; meta, which the dry-run asks for, carries shapes
+    only). Mixed devices raise."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds in ({"cpu"}, {"meta"}):
         return False
     if kinds == {"cuda"}:
         return True
     raise ValueError(f"tensors on {sorted(kinds)}: the kernels take CUDA "
-                     f"tensors and their plain versions CPU tensors")
+                     f"tensors and their plain versions CPU (or meta) "
+                     f"tensors")
 
 
 def flash_attention(

@@ -17,6 +17,12 @@ The cache is updated in place: ``update_cache``, ``fill_cache``,
 they are given and return that same dict, where the reference returns a new
 cache. A copy per decoded token would move the whole cache (545 MB for
 gemma2-2b at 5120 positions in bf16), more than the step itself reads.
+
+``constrain`` is a callback (x, logical_axes) -> x for sharding
+annotations, called at the reference's points; the default is the
+identity, and the mesh-aware one is ``distributed.sharding.constrain``.
+``attn_axes`` and ``cache_axes`` name each leaf's logical axes;
+``cache_spec`` is the cache as meta tensors.
 """
 from __future__ import annotations
 
@@ -27,8 +33,9 @@ import torch
 
 from .. import resolve_device
 from ..kernels import ops as kops
+from ..placement import on_mesh_of
 from . import layers
-from .layers import Tensor, dense_init
+from .layers import Constrain, Tensor, dense_init, no_constraint
 
 NEG_INF = -2.3819763e38  # bf16-safe large negative
 
@@ -60,7 +67,7 @@ class AttnConfig:
         return self.out_dim or self.d_model
 
 
-def attn_init(gen: torch.Generator, cfg: AttnConfig) -> dict:
+def attn_init(gen: Optional[torch.Generator], cfg: AttnConfig) -> dict:
     d, h = cfg.in_dim, cfg.head_dim
     p = {
         "wq": dense_init(gen, (d, cfg.num_heads, h), d),
@@ -73,7 +80,21 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig) -> dict:
         for name, heads in (("bq", cfg.num_heads), ("bk", cfg.num_kv_heads),
                             ("bv", cfg.num_kv_heads)):
             p[name] = torch.zeros((heads, h), dtype=torch.float32,
-                                  device=gen.device)
+                                  device=layers.gen_device(gen))
+    return p
+
+
+def attn_axes(cfg: AttnConfig) -> dict:
+    p = {
+        "wq": ("fsdp", "heads", "head_dim"),
+        "wk": ("fsdp", "kv_heads", "head_dim"),
+        "wv": ("fsdp", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "fsdp"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ("heads", "head_dim")
+        p["bk"] = ("kv_heads", "head_dim")
+        p["bv"] = ("kv_heads", "head_dim")
     return p
 
 
@@ -103,19 +124,21 @@ def _repeat_kv(k: Tensor, num_heads: int) -> Tensor:
 
 
 def _causal_mask(s_q: int, s_k: int, window: Optional[int],
-                 device: torch.device) -> Tensor:
-    """[s_q, s_k] boolean mask; True = attend."""
-    qi = torch.arange(s_q, device=device)[:, None]
-    ki = torch.arange(s_k, device=device)[None, :]
+                 ref: Tensor) -> Tensor:
+    """[s_q, s_k] boolean mask on the device (and mesh) of ``ref``; True =
+    attend."""
+    qi = torch.arange(s_q, device=ref.device)[:, None]
+    ki = torch.arange(s_k, device=ref.device)[None, :]
     m = ki <= qi
     if window is not None:
         m = m & (ki > qi - window)
-    return m
+    return on_mesh_of(ref, m)
 
 
-def _attend(cfg: AttnConfig, q: Tensor, k: Tensor, v: Tensor,
-            impl: str) -> Tensor:
-    """Causal attention of q [B,S,N,H] over k, v [B,S,K,H] from position 0."""
+def _attend(cfg: AttnConfig, q: Tensor, k: Tensor, v: Tensor, impl: str,
+            constrain: Constrain = no_constraint) -> Tensor:
+    """Causal attention of q [B,S,N,H] over k, v [B,S,K,H] from position 0.
+    ``constrain`` pins the torch path's [S, S] logits and probabilities."""
     if impl == "kernel":
         return kops.flash_attention(q, k, v, scale=cfg.resolved_scale,
                                     window=cfg.window,
@@ -125,10 +148,15 @@ def _attend(cfg: AttnConfig, q: Tensor, k: Tensor, v: Tensor,
     k = _repeat_kv(k, cfg.num_heads)
     v = _repeat_kv(v, cfg.num_heads)
     logits = torch.einsum("bqnh,bknh->bnqk", q, k) * cfg.resolved_scale
+    # batch x heads, and q rows context-parallel where the heads do not
+    # divide the model axis, so the [S, S] logits are never replicated
+    lg_axes = ("batch", "act_heads", "act_seq_q", None)
+    logits = constrain(logits, lg_axes)
     logits = layers.softcap(logits.float(), cfg.logit_softcap)
-    mask = _causal_mask(q.shape[1], k.shape[1], cfg.window, q.device)
+    mask = _causal_mask(q.shape[1], k.shape[1], cfg.window, logits)
     logits = torch.where(mask[None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = constrain(probs, lg_axes)
     return torch.einsum("bnqk,bknh->bqnh", probs, v)
 
 
@@ -137,10 +165,16 @@ def _out_proj(params: dict, o: Tensor, dtype: torch.dtype) -> Tensor:
 
 
 def attend_full(params: dict, cfg: AttnConfig, x: Tensor, positions: Tensor,
-                impl: str = "kernel") -> Tensor:
+                impl: str = "kernel",
+                constrain: Constrain = no_constraint) -> Tensor:
     """Causal self-attention over the whole sequence. x: [B, S, D]."""
     q, k, v = _project_qkv(params, cfg, x, positions)
-    return _out_proj(params, _attend(cfg, q, k, v, impl), x.dtype)
+    q = constrain(q, ("batch", "act_seq", "act_heads", None))
+    k = constrain(k, ("batch", "act_seq", "act_kv_heads", None))
+    v = constrain(v, ("batch", "act_seq", "act_kv_heads", None))
+    o = _attend(cfg, q, k, v, impl, constrain)
+    o = constrain(o, ("batch", "act_seq", "act_heads", None))
+    return _out_proj(params, o, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -157,11 +191,22 @@ def init_cache(batch: int, max_seq: int, cfg: AttnConfig,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def cache_spec(batch: int, max_seq: int, cfg: AttnConfig,
+               dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The cache as meta tensors (shapes and dtypes, no data)."""
+    return init_cache(batch, max_seq, cfg, dtype, layers.META)
+
+
+def cache_axes() -> dict:
+    return {"k": ("batch", "kv_seq", "act_kv_heads", None),
+            "v": ("batch", "kv_seq", "act_kv_heads", None)}
+
+
 def update_cache(cache: dict, k_new: Tensor, v_new: Tensor,
                  pos: Tensor) -> dict:
     """Write one new token per sequence, in place. k_new: [B, 1, K, H],
     pos: [B]. Returns ``cache``."""
-    idx = torch.arange(k_new.shape[0], device=k_new.device)
+    idx = on_mesh_of(k_new, torch.arange(k_new.shape[0], device=k_new.device))
     p = pos.long()
     cache["k"][idx, p] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][idx, p] = v_new[:, 0].to(cache["v"].dtype)
@@ -179,17 +224,20 @@ def fill_cache(cache: dict, k_new: Tensor, v_new: Tensor) -> dict:
 
 def attend_prefill(params: dict, cfg: AttnConfig, x: Tensor,
                    positions: Tensor, cache: dict,
-                   impl: str = "kernel") -> tuple[Tensor, dict]:
+                   impl: str = "kernel",
+                   constrain: Constrain = no_constraint) -> tuple[Tensor, dict]:
     """Prefill: full attention over the prompt, which starts at position
     0, AND fill the cache (in the cache's dtype; the attention itself runs
     on the unrounded k and v, as the reference's does)."""
     q, k, v = _project_qkv(params, cfg, x, positions)
     cache = fill_cache(cache, k, v)
+    q = constrain(q, ("batch", "act_seq", "act_heads", None))
     return _out_proj(params, _attend(cfg, q, k, v, impl), x.dtype), cache
 
 
 def attend_decode(params: dict, cfg: AttnConfig, x: Tensor, cache: dict,
-                  pos: Tensor, impl: str = "kernel") -> tuple[Tensor, dict]:
+                  pos: Tensor, impl: str = "kernel",
+                  constrain: Constrain = no_constraint) -> tuple[Tensor, dict]:
     """One-token decode. x: [B, 1, D], pos: [B] (current write index).
 
     Writes the token's k and v at ``pos`` into ``cache`` (in place) and
@@ -205,18 +253,26 @@ def attend_decode(params: dict, cfg: AttnConfig, x: Tensor, cache: dict,
     elif impl == "torch":
         # a cache in another dtype than q is promoted, as XLA promotes it
         dtype = torch.promote_types(q.dtype, cache["k"].dtype)
-        kh = _repeat_kv(cache["k"], cfg.num_heads).to(dtype)
-        vh = _repeat_kv(cache["v"], cfg.num_heads).to(dtype)
+        axes = ("batch", "kv_seq", "act_kv_heads", "head_dim")
+        k, v = constrain(cache["k"], axes), constrain(cache["v"], axes)
+        kh = _repeat_kv(k, cfg.num_heads).to(dtype)
+        vh = _repeat_kv(v, cfg.num_heads).to(dtype)
         logits = torch.einsum("bqnh,bknh->bnqk", q.to(dtype), kh) \
             * cfg.resolved_scale
+        # the logits follow the cache: its sequence axis where the cache is
+        # sequence-sharded, its head axis otherwise
+        lg_axes = ("batch", "act_kv_heads", None, "kv_seq")
+        logits = constrain(logits, lg_axes)
         logits = layers.softcap(logits.float(), cfg.logit_softcap)
-        ki = torch.arange(kh.shape[1], device=q.device)[None, None, None, :]
+        ki = on_mesh_of(logits, torch.arange(
+            kh.shape[1], device=q.device)[None, None, None, :])
         p = pos.long()[:, None, None, None]
         mask = ki <= p
         if cfg.window is not None:
             mask = mask & (ki > p - cfg.window)
         logits = torch.where(mask, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(q.dtype).to(dtype)
+        probs = constrain(probs, lg_axes)
         o = torch.einsum("bnqk,bknh->bqnh", probs, vh)
     else:
         raise ValueError(f"attention impl {impl!r}: 'kernel' or 'torch'")

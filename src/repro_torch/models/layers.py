@@ -9,36 +9,67 @@ Conventions
 * Params are created in float32; ``apply`` casts to the compute dtype
   carried by the activations (a no-op for leaves already cast once by
   ``convert.to_compute_dtype``).
+* ``*_axes`` functions return a tree of logical-axis tuples with the same
+  structure as the params; ``distributed.sharding`` maps them onto a
+  ``DeviceMesh``.
+* An init helper given ``gen=None`` makes meta tensors (shapes and dtypes,
+  no data): ``model.param_spec`` builds the parameter tree that way.
+* On a mesh the activations are ``DTensor``s, and a DTensor op takes no
+  plain tensor beside one: a tensor the model makes itself (a scale,
+  positions, a mask) joins the mesh through ``on_mesh_of``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..placement import on_mesh_of
+
 Tensor = torch.Tensor
+META = torch.device("meta")
+#: a sharding callback (x, logical axes) -> x; the default is ``no_constraint``
+Constrain = Callable[[Tensor, tuple], Tensor]
+
+
+def no_constraint(x: Tensor, _: tuple) -> Tensor:
+    return x
+
+
+def is_axes(x) -> bool:
+    """A leaf of a logical-axes tree: a tuple of axis names and Nones."""
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def gen_device(gen: Optional[torch.Generator]) -> torch.device:
+    """The device an init draws on: the generator's, meta without one."""
+    return META if gen is None else gen.device
 
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, shape: tuple[int, ...],
+def dense_init(gen: Optional[torch.Generator], shape: tuple[int, ...],
                in_dim: int) -> Tensor:
     """Truncated-normal fan-in init (1/sqrt(fan_in)), cut at +-2 std as
     ``jax.random.truncated_normal(-2, 2) * std`` is. ``trunc_normal_``'s
     bounds are absolute values, hence a = -2 std, b = 2 std."""
+    t = torch.empty(shape, dtype=torch.float32, device=gen_device(gen))
+    if gen is None:
+        return t
     std = 1.0 / math.sqrt(in_dim)
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     return torch.nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std,
                                        generator=gen)
 
 
-def embed_init(gen: torch.Generator, shape: tuple[int, ...]) -> Tensor:
+def embed_init(gen: Optional[torch.Generator],
+               shape: tuple[int, ...]) -> Tensor:
     return torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=gen.device)
+                       device=gen_device(gen))
 
 
 # ---------------------------------------------------------------------------
@@ -48,6 +79,10 @@ def embed_init(gen: torch.Generator, shape: tuple[int, ...]) -> Tensor:
 
 def rmsnorm_init(dim: int, device: torch.device) -> dict:
     return {"scale": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm_axes() -> dict:
+    return {"scale": (None,)}
 
 
 def rmsnorm(params: dict, x: Tensor, eps: float = 1e-6) -> Tensor:
@@ -78,6 +113,13 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
     return p
 
 
+def mlp_axes(gated: bool = True) -> dict:
+    p = {"wi": ("fsdp", "ffn"), "wo": ("ffn", "fsdp")}
+    if gated:
+        p["wg"] = ("fsdp", "ffn")
+    return p
+
+
 def mlp(params: dict, x: Tensor, act: str = "silu") -> Tensor:
     """[B, S, D] -> [B, S, D]. Gated if params carry ``wg``."""
     dtype = x.dtype
@@ -104,6 +146,13 @@ def embedding_init(gen: torch.Generator, vocab: int, d_model: int,
     return p
 
 
+def embedding_axes(tied: bool) -> dict:
+    p = {"table": ("vocab", "fsdp")}
+    if not tied:
+        p["unembed"] = ("fsdp", "vocab")
+    return p
+
+
 def embed_tokens(params: dict, tokens: Tensor, scale: bool,
                  dtype: torch.dtype = torch.bfloat16) -> Tensor:
     """[B, S] int -> [B, S, D]. The table is cast before the gather and the
@@ -111,8 +160,8 @@ def embed_tokens(params: dict, tokens: Tensor, scale: bool,
     table = params["table"].to(dtype)
     x = table[tokens.long()]
     if scale:
-        x = x * torch.tensor(math.sqrt(table.shape[-1]), dtype=dtype,
-                             device=x.device)
+        x = x * on_mesh_of(x, torch.tensor(math.sqrt(table.shape[-1]),
+                                           dtype=dtype, device=x.device))
     return x
 
 
@@ -140,8 +189,8 @@ def rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     x: [B, S, N, H], positions: [B, S]."""
     h = x.shape[-1]
     half = h // 2
-    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=x.device) / half)
+    freq = on_mesh_of(x, theta ** (-torch.arange(
+        0, half, dtype=torch.float32, device=x.device) / half))
     ang = positions[..., None].float() * freq              # [B, S, half]
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
@@ -156,9 +205,10 @@ def sinusoidal_pos(positions: Tensor, d_model: int,
     """Sinusoidal absolute position embedding [B, S] -> [B, S, D]
     (MusicGen's): [sin | cos] of the float32 angles, cast last."""
     half = d_model // 2
-    freq = torch.exp(-math.log(10000.0)
-                     * torch.arange(half, dtype=torch.float32,
-                                    device=positions.device) / half)
+    freq = on_mesh_of(positions, torch.exp(
+        -math.log(10000.0)
+        * torch.arange(half, dtype=torch.float32, device=positions.device)
+        / half))
     ang = positions[..., None].float() * freq
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 

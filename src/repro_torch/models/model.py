@@ -27,6 +27,15 @@ The decode cache mirrors the reference's tree (per block of a group
 axis), but ``prefill`` and ``decode_step`` write it in place and return the
 dict they were given: a cache that a step has consumed holds that step's
 result, and is not the cache from before it.
+
+Sharding: ``param_axes`` and ``cache_axes`` name the logical axes of every
+leaf (the blocks' with the leading ``"layers"`` axis of the group stack),
+``param_spec`` and ``cache_spec`` are the trees as meta tensors (the
+counterparts of ``jax.eval_shape(init_params)`` and the reference's
+``ShapeDtypeStruct`` cache), and ``forward``, ``prefill``, ``decode_step``
+and ``LM`` take the reference's ``constrain`` callback (identity by
+default; ``distributed.sharding.constrain`` bound to a rule table on a
+mesh).
 """
 from __future__ import annotations
 
@@ -38,10 +47,10 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs import ArchConfig
+from ..placement import on_mesh_of
 from . import attention as attn
 from . import layers, moe, ssm
-from .layers import Tensor
-
+from .layers import Constrain, Tensor, no_constraint
 
 # ---------------------------------------------------------------------------
 # config plumbing
@@ -157,8 +166,9 @@ def tree_unflatten(like, leaves) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
-    dev = gen.device
+def _block_init(gen: Optional[torch.Generator], cfg: ArchConfig,
+                kind: str) -> dict:
+    dev = layers.gen_device(gen)
     if kind == "mamba":
         return {"ln": layers.rmsnorm_init(cfg.d_model, dev),
                 "ssm": ssm.ssm_init(gen, ssm_cfg_for(cfg))}
@@ -178,9 +188,28 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
     return p
 
 
+def _block_axes(cfg: ArchConfig, kind: str) -> dict:
+    if kind == "mamba":
+        return {"ln": layers.rmsnorm_axes(), "ssm": ssm.ssm_axes()}
+    p = {
+        "ln1": layers.rmsnorm_axes(),
+        "attn": attn.attn_axes(attn_cfg_for(cfg, kind)),
+        "ln2": layers.rmsnorm_axes(),
+    }
+    if cfg.post_norms:
+        p["post_ln1"] = layers.rmsnorm_axes()
+        p["post_ln2"] = layers.rmsnorm_axes()
+    if cfg.num_experts:
+        p["moe"] = moe.moe_axes()
+    else:
+        p["mlp"] = layers.mlp_axes(gated=cfg.mlp_gated)
+    return p
+
+
 def _apply_block(params: dict, cfg: ArchConfig, kind: str, x: Tensor,
-                 mix: Callable[[Tensor], Tensor],
-                 moe_impl: str) -> tuple[Tensor, Optional[Tensor]]:
+                 mix: Callable[[Tensor], Tensor], moe_impl: str,
+                 constrain: Constrain = no_constraint
+                 ) -> tuple[Tensor, Optional[Tensor]]:
     """One block around its mixer ``mix`` (attention or the SSD block,
     normed input -> output): pre-norm, residual, and for attention blocks
     the MLP or MoE and gemma2's post-norms. Returns (x, the MoE aux loss,
@@ -194,12 +223,13 @@ def _apply_block(params: dict, cfg: ArchConfig, kind: str, x: Tensor,
     x = x + a
     h = layers.rmsnorm(params["ln2"], x)
     if cfg.num_experts:
-        m, aux = moe.moe_apply(params["moe"], moe_cfg_for(cfg), h, moe_impl)
+        m, aux = moe.moe_apply(params["moe"], moe_cfg_for(cfg), h, moe_impl,
+                               constrain)
     else:
         m = layers.mlp(params["mlp"], h, act=cfg.mlp_act)
     if cfg.post_norms:
         m = layers.rmsnorm(params["post_ln2"], m)
-    return x + m, aux
+    return constrain(x + m, ("batch", "act_seq", "embed")), aux
 
 
 def _apply_shared_attn(params: dict, cfg: ArchConfig, x: Tensor, x0: Tensor,
@@ -212,7 +242,8 @@ def _apply_shared_attn(params: dict, cfg: ArchConfig, x: Tensor, x0: Tensor,
 
 
 def _run_blocks(params: dict, cfg: ArchConfig, x: Tensor, mix: Callable,
-                moe_impl: str, cache: Optional[dict] = None
+                moe_impl: str, cache: Optional[dict] = None,
+                constrain: Constrain = no_constraint
                 ) -> tuple[Tensor, Optional[Tensor]]:
     """Every block in order, zamba2's shared block at the head of each
     group (over the block input ``x`` and the embeddings ``x0``);
@@ -236,7 +267,8 @@ def _run_blocks(params: dict, cfg: ArchConfig, x: Tensor, mix: Callable,
             bp = gparams[str(i)]
             bc = gcache[str(i)] if gcache is not None else None
             x, a = _apply_block(bp, cfg, kind, x,
-                                lambda h: mix(kind, bp, bc, h), moe_impl)
+                                lambda h: mix(kind, bp, bc, h), moe_impl,
+                                constrain)
             if a is not None:
                 aux = a if aux is None else aux + a
     return x, aux
@@ -252,36 +284,42 @@ def _logits(params: dict, cfg: ArchConfig, x: Tensor) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_params(gen: torch.Generator, cfg: ArchConfig,
+def init_params(gen: Optional[torch.Generator], cfg: ArchConfig,
                 device: str | torch.device = "cuda") -> dict:
     """Random float32 parameters on ``device`` (CUDA unless the caller asks
     for the CPU), drawn from ``gen``, a generator on that device, in the
-    reference's layout."""
+    reference's layout. ``gen=None`` with ``device="meta"`` gives the tree
+    as meta tensors (``param_spec``)."""
     return assemble_params(init_parts(gen, cfg, device))
 
 
-def init_parts(gen: torch.Generator, cfg: ArchConfig,
+def param_spec(cfg: ArchConfig) -> dict:
+    """The parameter tree as meta tensors: shapes and dtypes, no data."""
+    return init_params(None, cfg, layers.META)
+
+
+def init_parts(gen: Optional[torch.Generator], cfg: ArchConfig,
                device: str | torch.device = "cuda"):
     """``init_params``' draws in order, as pieces: first the tree outside
     ``blocks``, then each layer group's blocks, drawn as they are taken."""
     dev = resolve_device(device)
-    if gen.device.type != dev.type:
-        raise ValueError(f"generator on {gen.device}, parameters asked for "
-                         f"on {dev}")
+    if layers.gen_device(gen).type != dev.type:
+        raise ValueError(f"generator on {layers.gen_device(gen)}, parameters "
+                         f"asked for on {dev}")
     pat = group_pattern(cfg)
     params: dict = {
         "embed": layers.embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                        cfg.tie_embeddings),
-        "final_norm": layers.rmsnorm_init(cfg.d_model, gen.device),
+        "final_norm": layers.rmsnorm_init(cfg.d_model, dev),
     }
     if cfg.frontend:
         params["frontend"] = {"proj": layers.dense_init(
             gen, (cfg.frontend_dim, cfg.d_model), cfg.frontend_dim)}
     if cfg.shared_attn_every:
         params["shared_attn"] = {
-            "ln": layers.rmsnorm_init(2 * cfg.d_model, gen.device),
+            "ln": layers.rmsnorm_init(2 * cfg.d_model, dev),
             "attn": attn.attn_init(gen, shared_attn_cfg_for(cfg)),
-            "ln2": layers.rmsnorm_init(cfg.d_model, gen.device),
+            "ln2": layers.rmsnorm_init(cfg.d_model, dev),
             "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff,
                                    gated=cfg.mlp_gated),
         }
@@ -307,8 +345,38 @@ def _stack(trees: list[dict]) -> dict:
     return torch.stack(trees)
 
 
+def _with_layers(axes: dict) -> dict:
+    """Every leaf's axes behind the leading ``"layers"`` axis of the group
+    stack."""
+    if layers.is_axes(axes):
+        return ("layers",) + axes
+    return {k: _with_layers(v) for k, v in axes.items()}
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of every leaf of ``init_params``' tree."""
+    pat = group_pattern(cfg)
+    axes: dict = {
+        "embed": layers.embedding_axes(cfg.tie_embeddings),
+        "final_norm": layers.rmsnorm_axes(),
+    }
+    if cfg.frontend:
+        axes["frontend"] = {"proj": ("fsdp", None)}
+    if cfg.shared_attn_every:
+        axes["shared_attn"] = {
+            "ln": layers.rmsnorm_axes(),
+            "attn": attn.attn_axes(shared_attn_cfg_for(cfg)),
+            "ln2": layers.rmsnorm_axes(),
+            "mlp": layers.mlp_axes(gated=cfg.mlp_gated),
+        }
+    axes["blocks"] = _with_layers(
+        {str(i): _block_axes(cfg, kind) for i, kind in enumerate(pat)})
+    return axes
+
+
 def _embed_input(params: dict, cfg: ArchConfig, tokens: Tensor,
-                 frontend: Optional[Tensor], positions: Tensor) -> Tensor:
+                 frontend: Optional[Tensor], positions: Tensor,
+                 constrain: Constrain = no_constraint) -> Tensor:
     """Token embeddings; the projected frontend embeddings [B, F, E] in
     place of the first F (vision and audio stubs); absolute positions where
     the config has them."""
@@ -320,32 +388,41 @@ def _embed_input(params: dict, cfg: ArchConfig, tokens: Tensor,
         x = torch.cat([f, x[:, f.shape[1]:]], dim=1)
     if cfg.pos_embed == "absolute":
         x = x + layers.sinusoidal_pos(positions, cfg.d_model, dtype)
-    return x
+    return constrain(x, ("batch", "act_seq", "embed"))
+
+
+def _positions(tokens: Tensor) -> Tensor:
+    """[B, S] int32 positions 0..S-1 on the device (and mesh) of tokens."""
+    b, s = tokens.shape
+    pos = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    return on_mesh_of(tokens, pos)[None].expand(b, s)
 
 
 def forward(params: dict, cfg: ArchConfig, tokens: Tensor,
             attn_impl: str = "kernel", ssm_impl: str = "kernel",
             moe_impl: str = "kernel",
-            frontend: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
+            frontend: Optional[Tensor] = None,
+            constrain: Constrain = no_constraint) -> tuple[Tensor, Tensor]:
     """Causal LM forward. tokens: [B, S] int -> (logits [B,S,V] f32, aux).
     ``frontend`` [B, F, frontend_dim] (vision and audio configs) fills the
     first F positions. ``aux`` is the MoE load-balance loss summed over the
     layers (f32; zero without experts)."""
     _check_moe_impl(moe_impl)
-    b, s = tokens.shape
-    dev = tokens.device
-    positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
-    x = _embed_input(params, cfg, tokens, frontend, positions)
+    positions = _positions(tokens)
+    x = _embed_input(params, cfg, tokens, frontend, positions, constrain)
 
     def mix(kind, bp, _, h):
         if kind == "mamba":
-            return ssm.ssm_apply(bp["ssm"], ssm_cfg_for(cfg), h, impl=ssm_impl)
+            return ssm.ssm_apply(bp["ssm"], ssm_cfg_for(cfg), h, ssm_impl,
+                                 constrain)
         return attn.attend_full(bp["attn"], attn_cfg_for(cfg, kind), h,
-                                positions, impl=attn_impl)
-    x, aux = _run_blocks(params, cfg, x, mix, moe_impl)
+                                positions, attn_impl, constrain)
+    x, aux = _run_blocks(params, cfg, x, mix, moe_impl, constrain=constrain)
     if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
-    return _logits(params, cfg, x), aux
+        aux = on_mesh_of(x, torch.zeros((), dtype=torch.float32,
+                                        device=tokens.device))
+    logits = _logits(params, cfg, x)
+    return constrain(logits, ("batch", "act_seq", "vocab_out")), aux
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +466,23 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     return _stack_cache(cfg, _group_cache(cfg, batch, max_seq, dtype, dev))
 
 
+def cache_spec(cfg: ArchConfig, batch: int, max_seq: int,
+               dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The decode cache as meta tensors: shapes and dtypes, no data."""
+    return init_cache(cfg, batch, max_seq, dtype, layers.META)
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of every leaf of the decode cache."""
+    ax: dict = {}
+    for i, kind in enumerate(group_pattern(cfg)):
+        ax[str(i)] = (ssm.state_axes() if kind == "mamba"
+                      else attn.cache_axes())
+    if cfg.shared_attn_every:
+        ax["shared"] = attn.cache_axes()
+    return _with_layers(ax)
+
+
 # ---------------------------------------------------------------------------
 # prefill + decode
 # ---------------------------------------------------------------------------
@@ -408,14 +502,13 @@ def ssm_prefill(params: dict, scfg: ssm.SSMConfig, u: Tensor,
 def prefill(params: dict, cfg: ArchConfig, tokens: Tensor, cache: dict,
             attn_impl: str = "kernel", ssm_impl: str = "kernel",
             moe_impl: str = "kernel",
-            frontend: Optional[Tensor] = None) -> tuple[Tensor, dict]:
+            frontend: Optional[Tensor] = None,
+            constrain: Constrain = no_constraint) -> tuple[Tensor, dict]:
     """Run the prompt (its head from ``frontend``, as in ``forward``), fill
     ``cache`` in place. Returns (logits [B,S,V] f32, cache)."""
     _check_moe_impl(moe_impl)
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device)[None].expand(b, s)
-    x = _embed_input(params, cfg, tokens, frontend, positions)
+    positions = _positions(tokens)
+    x = _embed_input(params, cfg, tokens, frontend, positions, constrain)
 
     def mix(kind, bp, bc, h):
         if kind == "mamba":
@@ -424,14 +517,15 @@ def prefill(params: dict, cfg: ArchConfig, tokens: Tensor, cache: dict,
             bc["ssm"].copy_(st["ssm"])
             return y
         return attn.attend_prefill(bp["attn"], attn_cfg_for(cfg, kind), h,
-                                   positions, bc, impl=attn_impl)[0]
-    x, _ = _run_blocks(params, cfg, x, mix, moe_impl, cache)
+                                   positions, bc, attn_impl, constrain)[0]
+    x, _ = _run_blocks(params, cfg, x, mix, moe_impl, cache, constrain)
     return _logits(params, cfg, x), cache
 
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: Tensor, cache: dict,
                 pos: Tensor, attn_impl: str = "kernel",
-                moe_impl: str = "kernel") -> tuple[Tensor, dict]:
+                moe_impl: str = "kernel",
+                constrain: Constrain = no_constraint) -> tuple[Tensor, dict]:
     """One decode step. tokens: [B, 1], pos: [B] (write index). Advances
     ``cache`` in place. Returns (logits [B, 1, V] f32, cache)."""
     _check_moe_impl(moe_impl)
@@ -441,8 +535,8 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: Tensor, cache: dict,
         if kind == "mamba":
             return ssm.ssm_decode(bp["ssm"], ssm_cfg_for(cfg), h, bc)[0]
         return attn.attend_decode(bp["attn"], attn_cfg_for(cfg, kind), h, bc,
-                                  pos, impl=attn_impl)[0]
-    x, _ = _run_blocks(params, cfg, x, mix, moe_impl, cache)
+                                  pos, attn_impl, constrain)[0]
+    x, _ = _run_blocks(params, cfg, x, mix, moe_impl, cache, constrain)
     return _logits(params, cfg, x), cache
 
 
@@ -459,7 +553,8 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, params: Optional[dict] = None, *,
                  device: str | torch.device = "cuda", seed: int = 0,
                  attn_impl: str = "kernel", ssm_impl: str = "kernel",
-                 moe_impl: str = "kernel"):
+                 moe_impl: str = "kernel",
+                 constrain: Constrain = no_constraint):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -470,11 +565,12 @@ class LM(nn.Module):
         self.attn_impl = attn_impl
         self.ssm_impl = ssm_impl
         self.moe_impl = moe_impl
+        self.constrain = constrain
 
     def forward(self, tokens: Tensor,
                 frontend: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
         return forward(self.params, self.cfg, tokens, self.attn_impl,
-                       self.ssm_impl, self.moe_impl, frontend)
+                       self.ssm_impl, self.moe_impl, frontend, self.constrain)
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -483,9 +579,9 @@ class LM(nn.Module):
     def prefill(self, tokens: Tensor, cache: dict,
                 frontend: Optional[Tensor] = None) -> tuple[Tensor, dict]:
         return prefill(self.params, self.cfg, tokens, cache, self.attn_impl,
-                       self.ssm_impl, self.moe_impl, frontend)
+                       self.ssm_impl, self.moe_impl, frontend, self.constrain)
 
     def decode_step(self, tokens: Tensor, cache: dict,
                     pos: Tensor) -> tuple[Tensor, dict]:
         return decode_step(self.params, self.cfg, tokens, cache, pos,
-                           self.attn_impl, self.moe_impl)
+                           self.attn_impl, self.moe_impl, self.constrain)

@@ -19,19 +19,27 @@ Two dispatch implementations, chosen by ``moe_apply``'s ``impl``:
 
 The two compute different functions wherever the capacity drops a pair.
 
+On a mesh the router's ``topk`` runs on each rank's token shard
+(``placement.per_shard``): its backward in torch 2.11 scatters the
+gradient into a plain zero tensor, which DTensor refuses.
+
 Router: softmax over the expert logits in fp32, top-k, renormalised weights,
 and the Switch-style load-balance loss ``E * sum_e mean_prob_e *
-mean_count_e``. ``moe_axes`` (sharding) waits for the sharding slice.
+mean_count_e``. ``moe_axes`` names each leaf's logical axes, and
+``constrain`` (identity by default) pins the expert slots of the einsum
+dispatch to the expert axis, as in the reference.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from ..kernels import ops as kops
-from .layers import _ACTS, Tensor, dense_init
+from ..placement import on_mesh_of, per_shard
+from .layers import _ACTS, Constrain, Tensor, dense_init, no_constraint
 
 IMPLS = ("kernel", "einsum")
 
@@ -47,7 +55,7 @@ class MoEConfig:
     act: str = "silu"
 
 
-def moe_init(gen: torch.Generator, cfg: MoEConfig) -> dict:
+def moe_init(gen: Optional[torch.Generator], cfg: MoEConfig) -> dict:
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
     return {
         "router": dense_init(gen, (d, e), d),
@@ -57,13 +65,22 @@ def moe_init(gen: torch.Generator, cfg: MoEConfig) -> dict:
     }
 
 
+def moe_axes() -> dict:
+    return {
+        "router": (None, None),
+        "wi": ("experts", "fsdp", "ffn_noshard"),
+        "wg": ("experts", "fsdp", "ffn_noshard"),
+        "wo": ("experts", "ffn_noshard", "fsdp"),
+    }
+
+
 def _counts(flat_e: Tensor, e: int) -> Tensor:
     """Pairs per expert, int32, on the device of ``flat_e``. Not
     ``torch.bincount``: on CUDA it reads the largest index back to the
     host to size its output."""
     ones = torch.ones_like(flat_e, dtype=torch.int32)
-    return torch.zeros(e, dtype=torch.int32,
-                       device=flat_e.device).scatter_add_(0, flat_e, ones)
+    zeros = torch.zeros(e, dtype=torch.int32, device=flat_e.device)
+    return on_mesh_of(flat_e, zeros).scatter_add_(0, flat_e, ones)
 
 
 # ---------------------------------------------------------------------------
@@ -77,7 +94,11 @@ def route(params: dict, cfg: MoEConfig, x: Tensor
     (weights [T, k] in x's dtype, expert_idx [T, k] int32, aux_loss f32)."""
     logits = (x @ params["router"].to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
-    weights, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    # on a mesh on each token shard: topk's backward (torch 2.11) scatters
+    # into a plain zero tensor, which DTensor refuses beside a DTensor grad
+    weights, idx = per_shard(lambda p: torch.topk(p, cfg.top_k, dim=-1),
+                             (probs, {"token": 0}),
+                             out=({"token": 0}, {"token": 0}))
     weights = weights / weights.sum(dim=-1, keepdim=True)
     e, t = cfg.num_experts, x.shape[0]
     me = probs.mean(dim=0)                                  # mean router prob
@@ -107,8 +128,8 @@ def capacity_slots(idx: Tensor, e: int, cap: int) -> tuple[Tensor, Tensor]:
     return rank, rank < cap
 
 
-def moe_einsum(params: dict, cfg: MoEConfig, x: Tensor
-               ) -> tuple[Tensor, Tensor]:
+def moe_einsum(params: dict, cfg: MoEConfig, x: Tensor,
+               constrain: Constrain = no_constraint) -> tuple[Tensor, Tensor]:
     """x: [B, S, D] -> ([B, S, D], aux_loss). Capacity-dropped dispatch."""
     b, s, d = x.shape
     t = b * s
@@ -128,14 +149,17 @@ def moe_einsum(params: dict, cfg: MoEConfig, x: Tensor
     slot = torch.where(keep, pairs.long() * cap + rank, e * cap)
     src = xt.reshape(n_groups, g, 1, d).expand(n_groups, g, k, d)
     src = src.reshape(n_groups, g * k, d)
-    xe = torch.zeros((n_groups, e * cap + 1, d), dtype=dtype, device=x.device)
+    xe = on_mesh_of(x, torch.zeros((n_groups, e * cap + 1, d), dtype=dtype,
+                                   device=x.device))
     xe.scatter_(1, slot[..., None].expand(-1, -1, d), src)
     xe = xe[:, :e * cap].reshape(n_groups, e, cap, d)
+    xe = constrain(xe, ("batch", "act_experts", None, None))
 
     h = torch.einsum("Gecd,edf->Gecf", xe, params["wi"].to(dtype))
     gt = torch.einsum("Gecd,edf->Gecf", xe, params["wg"].to(dtype))
     h = _ACTS[cfg.act](gt) * h
     ye = torch.einsum("Gecf,efd->Gecd", h, params["wo"].to(dtype))
+    ye = constrain(ye, ("batch", "act_experts", None, None))
     # combine: each pair's slot back (the extra slot is zero), weighted and
     # summed over the k choices in fp32, as the combine einsum sums
     ye = torch.cat([ye.reshape(n_groups, e * cap, d),
@@ -175,18 +199,22 @@ def moe_gmm(params: dict, cfg: MoEConfig, x: Tensor
     # combine: back through the inverse permutation to [T, k, D], weighted
     # and summed over k (deterministic, no atomics)
     inv = torch.empty_like(order).scatter_(
-        0, order, torch.arange(order.numel(), device=order.device))
+        0, order, on_mesh_of(order, torch.arange(order.numel(),
+                                                 device=order.device)))
     yk = ys.index_select(0, inv).reshape(t, k, d)
     y = (yk * weights[..., None]).sum(dim=1)
     return y.reshape(b, s, d), aux
 
 
 def moe_apply(params: dict, cfg: MoEConfig, x: Tensor,
-              impl: str = "kernel") -> tuple[Tensor, Tensor]:
+              impl: str = "kernel",
+              constrain: Constrain = no_constraint) -> tuple[Tensor, Tensor]:
+    """``constrain`` applies to the einsum dispatch's expert slots; the
+    kernel path takes none (its kernel takes no DTensor)."""
     if impl == "kernel":
         return moe_gmm(params, cfg, x)
     if impl == "einsum":
-        return moe_einsum(params, cfg, x)
+        return moe_einsum(params, cfg, x, constrain)
     raise ValueError(f"moe_impl {impl!r} not in {IMPLS}")
 
 

@@ -14,11 +14,25 @@ takes mixed dtypes, as the Pallas one does.
 The decode state is the last K-1 pre-conv inputs (fp32) and the SSM state
 [B,H,N,P] (fp32). ``ssm_decode`` updates it in place and returns the dict
 it was given, as the KV cache is (``attention.py``).
+
+``ssm_axes`` and ``state_axes`` name each leaf's logical axes, and
+``constrain`` (identity by default) pins the heads of the scan input, as in
+the reference.
+
+On a mesh, two ops run on each rank's shard (``placement.per_shard``),
+with batch and channel or head shards kept and the sequence whole:
+``_causal_conv``'s depthwise conv, which DTensor sends to its
+tensor-parallel handler (that takes only its own layouts, in torch 2.11
+not even replicated inputs with this padding, and has no backward for a
+depthwise conv sharded over batch or channels), and the torch path's SSD
+scan (``kernels.ref.ssd_chunked``, plain PyTorch: DTensor in torch 2.11
+has no sharding rule for the flip in its cumsum's backward).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +40,10 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..kernels import ops as kops
 from ..kernels import ref as kref
-from .layers import Tensor, dense_init, rmsnorm, rmsnorm_init
+from ..placement import per_shard
+from . import layers
+from .layers import (Constrain, Tensor, dense_init, no_constraint, rmsnorm,
+                     rmsnorm_axes, rmsnorm_init)
 
 
 @dataclass(frozen=True)
@@ -56,8 +73,8 @@ class SSMConfig:
         return 2 * self.d_inner + 2 * self.state + self.heads
 
 
-def ssm_init(gen: torch.Generator, cfg: SSMConfig) -> dict:
-    dev = gen.device
+def ssm_init(gen: Optional[torch.Generator], cfg: SSMConfig) -> dict:
+    dev = layers.gen_device(gen)
     d, di = cfg.d_model, cfg.d_inner
     # A_log in [log 1, log 16] (mamba2 default); dt_bias so that
     # softplus(dt_bias) spans ~[1e-3, 1e-1]
@@ -82,6 +99,19 @@ def ssm_init(gen: torch.Generator, cfg: SSMConfig) -> dict:
     }
 
 
+def ssm_axes() -> dict:
+    return {
+        "in_proj": ("fsdp", "ssm_inproj"),
+        "conv_w": ("conv_kernel", None),
+        "conv_b": (None,),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "norm": rmsnorm_axes(),
+        "out_proj": ("ffn", "fsdp"),
+    }
+
+
 def _split_proj(cfg: SSMConfig, zxbcdt: Tensor):
     di = cfg.d_inner
     z = zxbcdt[..., :di]
@@ -95,29 +125,44 @@ def _causal_conv(params: dict, xbc: Tensor) -> Tensor:
     """Depthwise causal conv1d over [B, S, C] with kernel K: k-1 zeros of
     left padding, weights [K, C] as the JAX package stores them."""
     k, c = params["conv_w"].shape
-    w = params["conv_w"].to(xbc.dtype).t().reshape(c, 1, k)   # [C, 1, K]
-    xt = F.pad(xbc.transpose(1, 2), (k - 1, 0))              # [B, C, S+k-1]
-    out = F.conv1d(xt, w, groups=c).transpose(1, 2)
-    return out + params["conv_b"].to(xbc.dtype)
+
+    def conv(xbc, conv_w):
+        w = conv_w.to(xbc.dtype).t().reshape(c, 1, k)          # [C, 1, K]
+        xt = F.pad(xbc.transpose(1, 2), (k - 1, 0))            # [B, C, S+k-1]
+        return F.conv1d(xt, w, groups=c).transpose(1, 2)
+    return per_shard(conv, (xbc, {"batch": 0, "channel": 2}),
+                     (params["conv_w"], {"channel": 1}),
+                     out={"batch": 0, "channel": 2}) + \
+        params["conv_b"].to(xbc.dtype)
 
 
 def _run_ssd(cfg: SSMConfig, xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor,
              cmat: Tensor, d: Tensor, impl: str) -> tuple[Tensor, Tensor]:
     """The kernel or the torch chunked scan, with the sequence padded to a
     chunk multiple by ``ops.pad_to_chunk`` (padded tokens get dt=0: exact
-    no-ops)."""
+    no-ops). On a mesh the scan runs on each rank's batch and head shard."""
     if impl == "kernel":
         return kops.ssd(xh, dt, a, bmat, cmat, d, chunk=cfg.chunk)
     if impl != "torch":
         raise ValueError(f"ssm impl {impl!r}: 'kernel' or 'torch'")
-    s = xh.shape[1]
-    xh, dt, bmat, cmat, ch = kops.pad_to_chunk(cfg.chunk, xh, dt, bmat, cmat)
-    y, fin = kref.ssd_chunked(xh, dt, a, bmat, cmat, d, chunk=ch)
-    return y[:, :s], fin
+
+    def scan(xh, dt, a, bmat, cmat, d):
+        s = xh.shape[1]
+        xh, dt, bmat, cmat, ch = kops.pad_to_chunk(cfg.chunk, xh, dt, bmat,
+                                                   cmat)
+        y, fin = kref.ssd_chunked(xh, dt, a, bmat, cmat, d, chunk=ch)
+        return y[:, :s], fin
+    bh = {"batch": 0, "head": 2}
+    return per_shard(scan, (xh, bh), (dt, bh), (a, {"head": 0}),
+                     (bmat, {"batch": 0}), (cmat, {"batch": 0}),
+                     (d, {"head": 0}),
+                     out=(bh, {"batch": 0, "head": 1}))
 
 
 def ssm_full(params: dict, cfg: SSMConfig, u: Tensor,
-             impl: str = "kernel") -> tuple[Tensor, Tensor, Tensor]:
+             impl: str = "kernel",
+             constrain: Constrain = no_constraint
+             ) -> tuple[Tensor, Tensor, Tensor]:
     """Full-sequence Mamba2 block. u: [B, S, D] -> (out [B, S, D], the
     final SSM state [B,H,N,P] fp32, the pre-conv (x|B|C) [B, S, C])."""
     b, s, _ = u.shape
@@ -131,6 +176,7 @@ def ssm_full(params: dict, cfg: SSMConfig, u: Tensor,
     dt = F.softplus(dt.float() + params["dt_bias"][None, None, :])
     a = -torch.exp(params["A_log"])
     xh = x.reshape(b, s, cfg.heads, cfg.head_dim)
+    xh = constrain(xh, ("batch", "act_seq", "act_heads", None))
     y, fin = _run_ssd(cfg, xh, dt, a, bmat, cmat, params["D"], impl)
     y = y.reshape(b, s, cfg.d_inner)
     y = rmsnorm(params["norm"], y * F.silu(z))
@@ -139,9 +185,10 @@ def ssm_full(params: dict, cfg: SSMConfig, u: Tensor,
 
 
 def ssm_apply(params: dict, cfg: SSMConfig, u: Tensor,
-              impl: str = "kernel") -> Tensor:
+              impl: str = "kernel",
+              constrain: Constrain = no_constraint) -> Tensor:
     """Full-sequence Mamba2 block. u: [B, S, D] -> [B, S, D]."""
-    return ssm_full(params, cfg, u, impl)[0]
+    return ssm_full(params, cfg, u, impl, constrain)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +205,11 @@ def init_state(batch: int, cfg: SSMConfig, dtype: torch.dtype = torch.float32,
         "ssm": torch.zeros((batch, cfg.heads, cfg.state, cfg.head_dim),
                            dtype=torch.float32, device=dev),
     }
+
+
+def state_axes() -> dict:
+    return {"conv": ("batch", None, None),
+            "ssm": ("batch", "act_heads", None, None)}
 
 
 def ssm_decode(params: dict, cfg: SSMConfig, u: Tensor,

@@ -1,10 +1,17 @@
 """Loss functions: next-token cross entropy with z-loss and the MoE aux
-loss (port of ``repro/training/loss.py``)."""
+loss (port of ``repro/training/loss.py``).
+
+On a mesh the logits arrive as a DTensor, their vocab axis possibly
+sharded; the target gather takes them with the vocab whole
+(``placement.whole``): DTensor's gather along a sharded dimension gives a
+wrong shape."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from ..placement import whole
 
 Tensor = torch.Tensor
 
@@ -18,7 +25,7 @@ def cross_entropy(logits: Tensor, labels: Tensor, *,
     z-loss (log^2 Z regularizer) keeps the softmax normalizer bounded in
     bf16 training. Every metric is over max(mask.sum(), 1) tokens.
     """
-    logits = logits.float()
+    logits = whole(logits, -1).float()
     mask = (labels != IGNORE).float()
     safe = labels.clamp_min(0).long()
     lz = torch.logsumexp(logits, dim=-1)                        # [B, S]

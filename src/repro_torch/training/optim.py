@@ -19,6 +19,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..placement import on_mesh_of
 from ..models.model import tree_leaves, tree_map
 
 Tensor = torch.Tensor
@@ -50,12 +51,22 @@ def lr_at(cfg: OptimConfig, step: Tensor) -> Tensor:
 
 
 def init_state(params: Any) -> dict:
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
-    device = tree_leaves(params)[0].device
+    """Zero m and v shaped (and, on a mesh, placed) like the params, and a
+    zero step."""
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
+    first = tree_leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
     return {"m": zeros,
             "v": tree_map(torch.clone, zeros),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+            "step": on_mesh_of(first, step)}
+
+
+def state_axes(param_axes_tree: Any) -> dict:
+    """Optimizer-state logical axes: m and v shard like their parameters."""
+    return {"m": param_axes_tree,
+            "v": tree_map(lambda a: a, param_axes_tree),
+            "step": ()}
 
 
 def global_norm(tree: Any) -> Tensor:

@@ -16,27 +16,34 @@ einsum dispatch), since none of its Pallas kernels has a backward pass, and
 neither has any CUDA kernel of the port (their bindings raise on an input
 that requires grad).
 
-Sharding (``rules``, ``mesh``) waits for the port's device mesh (ROADMAP,
-queue A item 4); passing either raises.
+Sharding: ``build_train_step(cfg, tcfg, rules)`` binds
+``distributed.sharding.constrain`` to the rule table and passes it into
+``forward``, as the reference does. ``Trainer(mesh=..., rules=...)`` puts
+the state on a ``DeviceMesh`` as DTensors placed by ``train_state_axes``
+(``distribute_tensor``), each batch by ("batch", "act_seq"), and reads the
+metrics with ``full_tensor()``; the step's arithmetic is the mesh-less
+step's, run by DTensor on each rank's shards. Without a mesh the state is
+plain tensors and the constraints are the identity.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Callable, Iterator, Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from .. import resolve_device
 from ..configs import ArchConfig
 from ..distributed import (CheckpointManager, CompressionConfig,
                            FaultInjector, StragglerDetector,
                            compress_with_feedback, init_error_state)
+from ..distributed import sharding as shd
 from ..models import model as M
 from . import loss as L
 from . import optim
-
-_NO_MESH = ("sharding waits for the port's device mesh (ROADMAP, queue A "
-            "item 4)")
 
 
 @dataclass(frozen=True)
@@ -48,16 +55,25 @@ class TrainConfig:
     z_loss: float = 1e-4
 
 
-def build_grad_fn(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
+def make_constrain(rules: Optional[dict]) -> Callable:
+    """``sharding.constrain`` bound to ``rules`` (the default table without
+    them; on plain tensors it is the identity)."""
+    return functools.partial(shd.constrain, rules=rules)
+
+
+def build_grad_fn(cfg: ArchConfig, tcfg: TrainConfig,
+                  rules: Optional[dict] = None) -> Callable:
     """Returns compute_grads(params, batch) -> (grads, metrics): float32
-    gradients shaped like ``params`` and detached metrics, the ``accum``
-    microbatches' sums divided by ``accum``."""
+    gradients shaped (and placed) like ``params`` and detached metrics, the
+    ``accum`` microbatches' sums divided by ``accum``."""
+    constrain = make_constrain(rules)
 
     def loss_fn(params, batch):
         logits, aux = M.forward(params, cfg, batch["tokens"],
                                 attn_impl="torch", ssm_impl="torch",
                                 moe_impl="einsum",
-                                frontend=batch.get("frontend"))
+                                frontend=batch.get("frontend"),
+                                constrain=constrain)
         return L.lm_loss(logits, batch["labels"], aux, tcfg.aux_weight,
                          tcfg.z_loss)
 
@@ -77,7 +93,7 @@ def build_grad_fn(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
         assert b % a == 0, (b, a)
         mbs = {k: v.reshape((a, b // a) + tuple(v.shape[1:]))
                for k, v in batch.items()}
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = [torch.zeros_like(p, dtype=torch.float32)
                for p in M.tree_leaves(params)]
         met_acc = None
         for i in range(a):
@@ -99,10 +115,9 @@ def build_train_step(cfg: ArchConfig, tcfg: TrainConfig,
                      rules: Optional[dict] = None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics). state is a dict
     {params, opt, err?} of tensors, updated in place; batch {tokens,
-    labels} with global batch divisible by tcfg.accum."""
-    if rules is not None:
-        raise NotImplementedError(_NO_MESH)
-    compute_grads = build_grad_fn(cfg, tcfg)
+    labels} with global batch divisible by tcfg.accum. ``rules`` (a rule
+    table) binds the sharding constraints inside ``forward``."""
+    compute_grads = build_grad_fn(cfg, tcfg, rules)
 
     def train_step(state, batch):
         grads, metrics = compute_grads(state["params"], batch)
@@ -127,6 +142,19 @@ def init_train_state(gen: torch.Generator, cfg: ArchConfig,
     return state
 
 
+def train_state_axes(cfg: ArchConfig, tcfg: TrainConfig) -> dict:
+    """The logical axes of every leaf of ``init_train_state``'s tree."""
+    pax = M.param_axes(cfg)
+    ax = {"params": pax, "opt": optim.state_axes(pax)}
+    if tcfg.compression is not None:
+        ax["err"] = M.tree_map(lambda a: a, pax)
+    return ax
+
+
+def _metric(v: torch.Tensor) -> float:
+    return float(v.full_tensor() if isinstance(v, DTensor) else v)
+
+
 @dataclass
 class Trainer:
     cfg: ArchConfig
@@ -134,7 +162,7 @@ class Trainer:
     data: Iterator[dict]
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 50
-    mesh: Optional[object] = None
+    mesh: Optional[DeviceMesh] = None
     rules: Optional[dict] = None
     seed: int = 0
     fault_injector: Optional[FaultInjector] = None
@@ -145,9 +173,14 @@ class Trainer:
 
     def __post_init__(self) -> None:
         if self.mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+            self.device = self.mesh.device_type
         self.device = resolve_device(self.device)
         self._step_fn = build_train_step(self.cfg, self.tcfg, self.rules)
+        self._placements = (
+            shd.tree_placements(self.mesh, train_state_axes(self.cfg,
+                                                            self.tcfg),
+                                self.rules)
+            if self.mesh is not None else None)
         self._mgr = (CheckpointManager(self.ckpt_dir)
                      if self.ckpt_dir else None)
         self.state: Optional[dict] = None
@@ -159,7 +192,9 @@ class Trainer:
     def init_or_resume(self, resume: str = "auto") -> None:
         if (resume in ("auto", "must") and self._mgr is not None
                 and self._mgr.latest_step() is not None):
-            step, state, _ = self._mgr.restore(device=self.device)
+            step, state, _ = self._mgr.restore(device=self.device,
+                                               mesh=self.mesh,
+                                               placements=self._placements)
             self.state, self.step = state, step
             self.log_fn(f"[trainer] resumed from step {step}")
             return
@@ -167,7 +202,23 @@ class Trainer:
             raise FileNotFoundError("resume='must' but no checkpoint found")
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self.state = init_train_state(gen, self.cfg, self.tcfg, self.device)
+        if self.mesh is not None:
+            shd.distribute_tree(self.state, self.mesh, self._placements)
         self.step = 0
+
+    def _put(self, batch: dict) -> dict:
+        """The batch on the device, and on the mesh by ("batch", "act_seq")
+        (a frontend by ("batch", None, None))."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v).to(self.device)
+            if self.mesh is not None:
+                lg = ("batch", None, None) if k == "frontend" else (
+                    "batch", "act_seq")
+                t = distribute_tensor(t, self.mesh, shd.placements_for(
+                    self.mesh, shd.spec_for(lg, self.rules)))
+            out[k] = t
+        return out
 
     def save(self) -> None:
         if self._mgr is not None and self.state is not None:
@@ -180,12 +231,10 @@ class Trainer:
         while self.step < num_steps:
             if self.fault_injector is not None:
                 self.fault_injector.check(self.step)
-            batch = next(self.data)
-            batch = {k: torch.as_tensor(v).to(self.device)
-                     for k, v in batch.items()}
+            batch = self._put(next(self.data))
             self.straggler.start()
             self.state, metrics = self._step_fn(self.state, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics = {k: _metric(v) for k, v in metrics.items()}
             slow = self.straggler.stop(self.step)
             if slow is not None:
                 self.log_fn(f"[trainer] straggler step {self.step}: "

@@ -369,13 +369,46 @@ def test_loss_decreases():
     assert h[-1]["loss"] < h[0]["loss"] * 0.8
 
 
-def test_sharding_and_the_card_default_raise():
+def test_sharding_and_the_card_default_raise(monkeypatch):
+    """Sharding runs: a rule table binds ``build_train_step``'s constraints
+    (the identity on plain tensors, so the step equals the rule-less one
+    exactly) and ``Trainer`` takes a one-device mesh, its state DTensors.
+    The card default still raises without CUDA: nothing carries on silently
+    on the CPU."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import rules_for
+
     _, cfg = _cfgs("qwen1.5-4b")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TT.build_train_step(cfg, TT.TrainConfig(), rules={})
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TT.Trainer(cfg=cfg, tcfg=TT.TrainConfig(), data=iter(()),
-                   mesh=object(), device="cpu")
+    tcfg = TT.TrainConfig()
+    b = {k: torch.from_numpy(v) for k, v in tpipe.SyntheticLMData(
+        vocab_size=128, seq_len=16, global_batch=2, seed=0).batch(0).items()}
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data",
+                                                               "model"))
+        rules = rules_for(cfg, mesh)
+        metrics = []
+        for r in (None, rules):
+            state = TT.init_train_state(torch.Generator().manual_seed(0),
+                                        cfg, tcfg, "cpu")
+            metrics.append(TT.build_train_step(cfg, tcfg, r)(state, b)[1])
+        assert {k: float(v) for k, v in metrics[0].items()} == \
+            {k: float(v) for k, v in metrics[1].items()}
+        t = TT.Trainer(cfg=cfg, tcfg=tcfg, data=iter([b]), mesh=mesh,
+                       rules=rules, log_every=1000)
+        t.init_or_resume(resume="never")
+        assert all(isinstance(x, DTensor)
+                   for x in TM.tree_leaves(t.state["params"]))
+        (m,) = t.run(1)
+        assert np.isfinite(m["loss"]) and m["step"] == 1
+    finally:
+        dist.destroy_process_group()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.Trainer(cfg=cfg, tcfg=tcfg, data=iter(()))
 
 
 # ---------------------------------------------------------------------------
