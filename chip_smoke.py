@@ -120,13 +120,32 @@ Phases, each of which raises (exit code != 0) on any failure:
    counted once each on meta tensors and reported for the (16, 16) and
    (2, 16, 16) meshes (compute and memory terms, the dominant one, the
    argument GB per device), with the phase's seconds. No train or mesh run
-   launches a kernel; only the restored prefill adds SSD launches.
+   launches a kernel; only the restored prefill adds SSD launches;
+12. the fleet, run right after phase 5 on its handles (detector and
+   verifier at smoke width, context at published width cut to 4 layers,
+   kws whole, 1024-token prompts): ``repro_torch.launch.serve_fleet``'s
+   two nodes ("big" 1.0/1.0 and "small" 0.45/0.4 slices), each served by
+   its own worker thread on its own CUDA stream, its six streams
+   under ``tuned_score`` for 3 epochs of 2 s (the other three policies'
+   placements printed, not served). It fails unless each worker served on
+   its node's own non-default stream (the worker checks, and the two
+   differ), flash and SSD launches equal the engines' calls x attention
+   (SSM) layers, every placed model served a frame each epoch, the
+   windows' frames add up to the fleet's, the tuner saw 3 windows with its
+   multipliers in [TUNE_LO, TUNE_HI], the obs export parses with
+   ``serve_frames_total`` equal to the fleet's frames, and each node's
+   last served frame of each model, re-run alone on the same handle and
+   tokens, passes the bf16 gate (bit-equality printed). It prints each
+   node's lat_table and report, each model's median served wall under two
+   threads beside its calibrated time alone and beside an epoch of the
+   node's streams served with no other worker running, and each epoch's
+   wall beside the nodes' summed busy seconds.
 
 The ``kernels`` line's launches add up each kernel's counted runs: flash
-over the two serving runs and the counted prefills of phases 7-9, SSD over
-the serving runs, the counted prefills and the restored prefills of phases
-10 and 11,
-decode attention over the steps of phases 7-9, gmm over the MoE runs.
+over the two serving runs, the fleet's epochs and the counted prefills of
+phases 7-9, SSD over the serving runs, the fleet's epochs, the counted
+prefills and the restored prefills of phases 10 and 11, decode attention
+over the steps of phases 7-9, gmm over the MoE runs.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -747,7 +766,9 @@ def check_served_forward(torch, cases) -> None:
 # ---------------------------------------------------------------------------
 
 
-def serve(torch) -> dict:
+def serve(torch) -> tuple[dict, dict]:
+    """Phase 5 (and 6). Returns the launches and the served handles by name,
+    each with its own logits function (not the counting wrapper)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.convert import to_compute_dtype
@@ -785,6 +806,7 @@ def serve(torch) -> dict:
     # context past its 4096 window, so that the local layers' window binds
     check_served_forward(torch, [(ctx, 6144), (kws, prompt)])
 
+    plain = {h.name: dataclasses.replace(h) for h in handles}
     # count the engine's calls of each model, to hold the kernels' launch
     # counters against the layers those calls ran
     calls = {h.name: 0 for h in handles}
@@ -910,7 +932,7 @@ def serve(torch) -> dict:
         launches[name] += replay_launches[name]
     del q, rq, served, last
     profile(torch, [(ctx, prompt), (kws, prompt)])
-    return launches
+    return launches, plain
 
 
 def profile(torch, cases) -> None:
@@ -989,6 +1011,207 @@ def check_decode_launches(rows, by_kernel: dict, layers: int, steps: int,
         raise AssertionError(f"{label}: decode kernel_launches "
                              f"{by_kernel}, expected "
                              f"{steps * layers} on mma")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the fleet (run right after phase 5, on its handles)
+# ---------------------------------------------------------------------------
+
+FLEET_EPOCHS = 3
+FLEET_EPOCH_S = 2.0
+
+
+def fleet_phase(torch, handles: dict, card: str) -> dict:
+    """``repro_torch.launch.serve_fleet``'s path at served widths: phase 5's
+    four models on its two nodes (one thread and one CUDA stream
+    each), its six streams under ``tuned_score``. Returns the launches."""
+    import threading
+
+    import numpy as np
+    from repro_torch.cluster.router import TUNE_HI, TUNE_LO, make_policy
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd as ssd_mod
+    from repro_torch.launch import serve_fleet as sf
+    from repro_torch.obs import Obs, load_jsonl, parse_prometheus, \
+        validate_span
+
+    t0 = time.perf_counter()
+    log(f"[fleet] {card}")
+    prompt = 1024
+    lock = threading.Lock()
+    names = ("detector", "verifier", "context", "kws")
+    calls = dict.fromkeys(names, 0)
+
+    def counted(h):
+        """The handle with its calls counted under a lock (two workers call
+        it) and no supernet variant (the fleet registers none)."""
+        def fn(p, tokens, _fn=h.fn, _name=h.name):
+            with lock:
+                calls[_name] += 1
+            return _fn(p, tokens)
+        return dataclasses.replace(h, fn=fn, supernet=())
+
+    fleet = [counted(handles[n]) for n in names]
+    by_name = {h.name: h for h in fleet}
+    shapes = {n: (prompt, by_name[n].cfg.vocab_size)
+              for n in ("context", "kws")}
+    nodes = sf.make_nodes(torch.device("cuda"))
+    if (nodes[0].cuda_stream is None or nodes[0].cuda_stream ==
+            nodes[1].cuda_stream):
+        raise AssertionError("the nodes do not have a CUDA stream each")
+    sf.register_all(nodes, fleet, lambda h: np.zeros(
+        (1, shapes.get(h.name, (32,))[0]), np.int32))
+    for node in nodes:
+        for acc in node.engine.accs:
+            lat = {m: t for (m, a), t in node.engine.lat_table.items()
+                   if a == acc.name}
+            log(f"[fleet] node {node.name} lat_table {acc.name}: " + " ".join(
+                f"{m}={t * 1e3:.3f}ms" for m, t in lat.items()))
+    streams = sf.make_streams(shapes)
+    for name in ("round_robin", "least_loaded", "score"):
+        nids = sf.place_streams(make_policy(name), nodes, streams)
+        log(f"[fleet] {name} would place " + ", ".join(
+            f"{s.model}@{s.fps:g}->{nodes[n].name}"
+            for s, n in zip(streams, nids)))
+    log(f"[fleet] set-up (register and calibrate 2 nodes, place) "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the main path: counts set to 0 just before, read just after
+    calls.update(dict.fromkeys(names, 0))
+    samples0 = [{m: len(v) for m, v in n.engine.lat_samples.items()}
+                for n in nodes]
+    reset_flash_counters(fa)
+    reset_ssd_counters(ssd_mod)
+    policy = make_policy("tuned_score")
+    obs = Obs.make({"profile": False})
+    run = sf.serve_epochs(nodes, streams, policy, FLEET_EPOCHS,
+                          FLEET_EPOCH_S, obs=obs,
+                          log=lambda m: log(f"[fleet] {m}"))
+    launches = {"flash_attention": fa.launches, "ssd": ssd_mod.launches}
+    flash_by_kernel(fa, "fleet run")
+
+    # each worker on its own stream, not the default one
+    active = [sorted(set(nids)) for nids in run.placements]
+    ran = {n.node_id: n.served_on for n in nodes if n.served_on is not None}
+    log(f"[fleet] nodes active per epoch {active}; served on raw streams "
+        f"{ran}, own streams "
+        f"{ {n.node_id: n.cuda_stream.cuda_stream for n in nodes} }")
+    if len(ran) != len(nodes) or len(set(ran.values())) != len(nodes):
+        raise AssertionError(f"fleet: the workers ran on streams {ran}; "
+                             f"every node must have served on its own")
+    for n in nodes:
+        if ran[n.node_id] != n.cuda_stream.cuda_stream or ran[n.node_id] in (
+                0, torch.cuda.default_stream().cuda_stream):
+            raise AssertionError(f"fleet: node {n.name} served on "
+                                 f"{ran[n.node_id]}, not its own stream")
+
+    # launches against the calls the engines made
+    attn = {h.name: (0 if h.cfg.family == "ssm" else h.cfg.num_layers)
+            for h in fleet}
+    per_node = [{m: len(v) - samples0[i].get(m, 0)
+                 for m, v in n.engine.lat_samples.items()}
+                for i, n in enumerate(nodes)]
+    log(f"[fleet] model calls {calls}, by node {per_node}; kernel "
+        f"launches {launches}")
+    for m in calls:
+        if calls[m] != sum(c.get(m, 0) for c in per_node):
+            raise AssertionError(f"fleet: {m} called {calls[m]} times, the "
+                                 f"engines timed {per_node}")
+    want = {"flash_attention": sum(calls[m] * attn[m] for m in calls),
+            "ssd": calls["kws"] * by_name["kws"].cfg.num_layers}
+    if launches != want or not all(launches.values()):
+        raise AssertionError(f"fleet: launches {launches}, the served "
+                             f"calls make {want}")
+
+    # every placed model served, the windows add up, the tuner in bounds
+    for e, (nids, served) in enumerate(zip(run.placements, run.served)):
+        log(f"[fleet] epoch {e}: served {served}; wall "
+            f"{run.epoch_wall_s[e]:.3f} s, busy by node {run.busy_s[e]}, "
+            f"summed busy {sum(run.busy_s[e].values()):.3f} s "
+            f"({sum(run.busy_s[e].values()) / run.epoch_wall_s[e]:.3f} of "
+            f"the wall)")
+        for s_, nid in zip(streams, nids):
+            if served.get((nid, s_.model), 0) <= 0:
+                raise AssertionError(f"fleet epoch {e}: {s_.model} placed "
+                                     f"on node {nid} served no frame")
+    win_frames = [w.frames for w in run.windows]
+    log(f"[fleet] windows: frames {win_frames}, DLV "
+        f"{[w.dlv_rate for w in run.windows]}, node DLV "
+        f"{[w.node_dlv for w in run.windows]}, UXCost "
+        f"{[w.uxcost for w in run.windows]}; fleet frames {run.frames}")
+    if sum(win_frames) != run.frames:
+        raise AssertionError(f"fleet: windows hold {win_frames} frames, the "
+                             f"fleet {run.frames}")
+    mult = policy.multipliers
+    log(f"[fleet] tuner: windows_seen {policy.windows_seen}, held "
+        f"{policy.held_windows}, commits {policy.probe.commits}, weights "
+        f"{policy.weights}, multipliers {mult.tolist()}")
+    if policy.windows_seen != FLEET_EPOCHS or not (
+            np.all(mult >= np.asarray(TUNE_LO)) and np.all(mult <= TUNE_HI)):
+        raise AssertionError(f"fleet: tuner saw {policy.windows_seen} "
+                             f"windows, multipliers {mult}")
+
+    # the obs export
+    paths = obs.export(str(ROOT / "build" / "fleet_obs"))
+    samples = parse_prometheus(Path(paths["metrics_prom"]).read_text())
+    spans = load_jsonl(paths["spans"])
+    for rec in spans:
+        validate_span(rec)
+    exported = sum(x["value"] for x in samples
+                   if x["name"] == "serve_frames_total")
+    log(f"[fleet] obs: {len(spans)} spans, {len(samples)} samples; "
+        f"serve_frames_total {exported}")
+    if exported != run.frames:
+        raise AssertionError(f"fleet: serve_frames_total {exported}, the "
+                             f"fleet served {run.frames}")
+
+    # per node: the report, and served wall times under two threads beside
+    # the calibrated time alone; then each node's streams served again for
+    # an epoch with no other worker running, the control that tells the
+    # other thread's share from the node's own load
+    threaded = [{m: list(v) for m, v in n.engine.lat_samples.items()}
+                for n in nodes]
+    solo = []
+    for n in nodes:
+        mine = [s_ for s_, nid in zip(streams, run.placements[-1])
+                if nid == n.node_id]
+        before = {m: len(v) for m, v in n.engine.lat_samples.items()}
+        if mine:
+            sf.serve_epochs([n], mine, make_policy("round_robin"), 1,
+                            FLEET_EPOCH_S,
+                            log=lambda m: log(f"[fleet] alone: {m}"))
+        solo.append({m: v[before.get(m, 0):]
+                     for m, v in n.engine.lat_samples.items()})
+    for n, samples, alone_s in zip(nodes, threaded, solo):
+        rep = run.reports[-1].get(n.node_id)
+        log(f"[fleet] node {n.name}: "
+            f"{rep.summary() if rep is not None else 'idle last epoch'}")
+        acc = n.engine.accs[0]
+        for m, v in sorted(samples.items()):
+            calib = n.engine.lat_table[(m, acc.name)] * acc.speed
+            med = statistics.median(v)
+            alone = (f", served alone {statistics.median(alone_s[m]) * 1e3:.3f}"
+                     f" ms ({len(alone_s[m])} calls)"
+                     if alone_s.get(m) else "")
+            log(f"[fleet]   {n.name} {m:>9s}: {len(v)} calls, median wall "
+                f"under two threads {med * 1e3:.3f} ms, calibrated alone "
+                f"{calib * 1e3:.3f} ms (x{med / calib:.2f}){alone}")
+
+    # the last served frame of each model on each node, again, alone
+    torch.cuda.synchronize()
+    for (nid, m), req in sorted(run.last_served.items()):
+        h = handles[m]
+        with torch.inference_mode():
+            again = h.fn(h.params, torch.from_numpy(req.tokens).cuda())
+        err, rel = check_bf16(f"fleet node {nid} {m} re-run", req.result,
+                              again)
+        log(f"[fleet] node {nodes[nid].name} {m}: last served logits "
+            f"{tuple(req.result.shape)} against a re-run alone: max abs err "
+            f"{err}, rel L2 {rel}, bit-equal "
+            f"{bool(torch.equal(req.result, again))}")
+    del run, again
+    log(f"[fleet] phase {time.perf_counter() - t0:.1f} s; {card}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2535,7 +2758,14 @@ def main() -> int:
     check_models(torch)
 
     # 5. serving (and 6. its profile)
-    launches = serve(torch)
+    launches, served_handles = serve(torch)
+
+    # 12. the fleet, on phase 5's handles
+    t_fleet = time.perf_counter()
+    fleet_launches = fleet_phase(torch, served_handles, card)
+    del served_handles
+    torch.cuda.empty_cache()
+    log(f"[time] phase 12 (fleet) {time.perf_counter() - t_fleet:.1f} s")
 
     # 7. decode
     dec_headline, dec_launches = decode(torch, gen)
@@ -2560,10 +2790,12 @@ def main() -> int:
         f"{t_train - t_archs:.1f} s, phase 10 (training) "
         f"{t_mesh - t_train:.1f} s, phase 11 (mesh and dry-run) "
         f"{time.perf_counter() - t_mesh:.1f} s")
-    log(f"[launches] serving {launches}, decode {dec_launches}, MoE "
+    log(f"[launches] serving {launches}, fleet {fleet_launches}, decode "
+        f"{dec_launches}, MoE "
         f"{moe_launches}, archs {arch_launches}, training {train_launches}, "
         f"mesh {mesh_launches}")
     launches = sum_launches([{"launches": launches},
+                             {"launches": fleet_launches},
                              {"launches": dec_launches},
                              {"launches": moe_launches},
                              {"launches": arch_launches},

@@ -29,6 +29,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+#: guards the bindings' launch counters: serving engines on two threads
+#: launch through one binding, and ``launches += 1`` on a module global can
+#: lose an update between threads
+counter_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0

@@ -20,7 +20,10 @@ binding keeps per device and that every call leaves at zero, so the call can
 be captured in a CUDA graph. The first call on a device, or with more
 sequences x KV heads than before, allocates them: make it before capturing.
 Calls on one device share the counters, so they must not run concurrently
-on two streams.
+on two streams. The fleet-serving path (``launch.serve_fleet``), which runs
+engines on one stream each, calls only forwards (flash attention, SSD) and
+never reaches this buffer; a decode path on several streams must first give
+each stream its own buffer.
 """
 from __future__ import annotations
 
@@ -65,6 +68,14 @@ _KERNELS = {(torch.bfloat16, torch.bfloat16): "mma",
 launches = 0
 #: the same by kernel
 kernel_launches = {"mma": 0, "fp32": 0}
+
+
+def _count(kernel: str) -> None:
+    """One launch of ``kernel``, counted under ``build.counter_lock``."""
+    global launches
+    with build.counter_lock:
+        launches += 1
+        kernel_launches[kernel] += 1
 #: per device index: the mma kernel's merge counters, int32, zero between
 #: calls
 _tickets: dict[int, torch.Tensor] = {}
@@ -138,7 +149,6 @@ def decode_attention(
 ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors; returns [B, N, H] in q's
     dtype. Raises on anything the kernel does not take."""
-    global launches
     build.check_inputs("decode_attention", q, k_cache, v_cache,
                        pos)
     if q.ndim != 3 or k_cache.ndim != 4:
@@ -209,8 +219,7 @@ def decode_attention(
                 b, s, n, kv, h, splits, TILE, float(scale), window or 0,
                 float(softcap or 0.0), stream)
     build.check(lib, err, f"decode_attention ({kernel}) launch")
-    launches += 1
-    kernel_launches[kernel] += 1
+    _count(kernel)
     return out
 
 

@@ -31,6 +31,14 @@ launches = 0
 kernel_launches = {"wgmma": 0, "fp32": 0}
 
 
+def _count(kernel: str) -> None:
+    """One launch of ``kernel``, counted under ``build.counter_lock``."""
+    global launches
+    with build.counter_lock:
+        launches += 1
+        kernel_launches[kernel] += 1
+
+
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel of ``csrc/flash_attention.cu`` a call in ``dtype`` at
     ``head_dim`` launches: "wgmma" (bfloat16) or "fp32"."""
@@ -68,7 +76,6 @@ def flash_attention(
 ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors; returns [B, Sq, N, H] in q's
     dtype. Raises on anything the kernel does not take."""
-    global launches
     build.check_inputs("flash_attention", q, k, v)
     b, sq, n, h = q.shape
     _, sk, kv, _ = k.shape
@@ -101,8 +108,7 @@ def flash_attention(
             _DTYPES[q.dtype], b, sq, sk, n, kv, h, float(scale), int(causal),
             window or 0, float(softcap or 0.0), stream)
     build.check(lib, err, "flash_attention launch")
-    launches += 1
-    kernel_launches[kernel_for(q.dtype, h)] += 1
+    _count(kernel_for(q.dtype, h))
     return out
 
 

@@ -36,6 +36,14 @@ launches = 0
 kernel_launches = {"wgmma": 0, "wgmma_splitk": 0, "fp32": 0}
 
 
+def _count(kernel: str) -> None:
+    """One launch of ``kernel``, counted under ``build.counter_lock``."""
+    global launches
+    with build.counter_lock:
+        launches += 1
+        kernel_launches[kernel] += 1
+
+
 def kernel_for(dtype: torch.dtype, t: int) -> str:
     """Which kernel of ``csrc/gmm.cu`` a call of ``t`` rows in ``dtype``
     launches: "wgmma" (bfloat16), "wgmma_splitk" (bfloat16 at up to
@@ -66,7 +74,6 @@ def gmm(x: torch.Tensor, w: torch.Tensor,
     """Launch the CUDA kernel on CUDA tensors: x [T, D] sorted by group,
     w [E, D, F], group_sizes [E] int (summing to T). Returns [T, F] in x's
     dtype. Raises on anything the kernel does not take."""
-    global launches
     build.check_inputs("gmm", x, w, group_sizes)
     if x.ndim != 2 or w.ndim != 3 or group_sizes.ndim != 1:
         raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
@@ -114,8 +121,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor,
                                 else None,
                                 _DTYPES[x.dtype], t, d, f, e, splits, stream)
     build.check(lib, err, "gmm launch")
-    launches += 1
-    kernel_launches[kernel] += 1
+    _count(kernel)
     return out
 
 

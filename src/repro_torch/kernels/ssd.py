@@ -23,6 +23,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 
 
+def _count() -> None:
+    """One call's launches, counted under ``build.counter_lock``."""
+    global launches
+    with build.counter_lock:
+        launches += 1
+
+
 def ssd(
     x: torch.Tensor,             # [B, S, H, P]  float32 or bfloat16
     dt: torch.Tensor,            # [B, S, H]     float32 (softplus'd)
@@ -36,7 +43,6 @@ def ssd(
     """Launch the CUDA kernels on CUDA tensors. S must be a multiple of
     ``chunk``. Returns (y [B,S,H,P] in x's dtype, final state [B,H,N,P]
     float32)."""
-    global launches
     build.check_inputs("ssd", x, dt, A, B, C, D)
     b, s, h, p = x.shape
     n = B.shape[-1]
@@ -87,7 +93,7 @@ def ssd(
             decays.data_ptr(), _DTYPES[x.dtype], b, nc * lp, h, pp, np_, lp,
             stream)
     build.check(lib, err, "ssd launch")
-    launches += 1
+    _count()
     if padded:
         y = y.reshape(b, nc, lp, h, pp)[:, :, :chunk, :, :p].reshape(b, s, h, p)
         fin = fin[:, :, :n, :p].contiguous()

@@ -14,10 +14,13 @@ The engine owns:
   * straggler mitigation: a job whose wall clock exceeds a watermark is
     re-dispatched to the next-best slice.
 
-Every timed model call ends in ``torch.cuda.synchronize()`` when the model
-lives on CUDA (the counterpart of ``jax.block_until_ready``), and the prompt
-goes host -> device inside the timed window. Energy is modeled as latency x
-slice power weight.
+Every timed model call, the calibration's included, ends by waiting for the
+calling thread's current CUDA stream when the model lives on CUDA (the
+counterpart of ``jax.block_until_ready`` on the call's output), and the
+prompt goes host -> device inside the timed window. Waiting for the stream
+and not the device is what lets engines serve concurrently, one thread and
+one stream each (``launch.serve_fleet``): each times its own work, not the
+other engines'. Energy is modeled as latency x slice power weight.
 """
 from __future__ import annotations
 
@@ -199,8 +202,10 @@ def _params_device(params: Any) -> torch.device:
 
 
 def _sync(device: torch.device) -> None:
+    """Wait for the work this thread enqueued on ``device``: its current
+    stream, not the streams of engines on other threads."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +264,12 @@ class ServingEngine:
         self._probe: list[tuple[float, np.ndarray]] = []
         self._probe_radius = 0.4
         self._lat_samples: dict[str, list[float]] = {}
+
+    @property
+    def lat_samples(self) -> dict[str, list[float]]:
+        """Wall seconds of every timed call served so far, one per call, by
+        the model (or supernet variant) that ran."""
+        return self._lat_samples
 
     # ------------------------------------------------------------ registry
     def register(self, handle: ModelHandle, calibrate_tokens: np.ndarray

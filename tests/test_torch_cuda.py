@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here is marked ``cuda`` and skips with "no CUDA" on a machine
-without a GPU. The file imports neither JAX nor the JAX package, so it also
-runs where JAX is not installed (the repository's conftest imports JAX):
+Every test here but the launch-counter test (which needs no card) is marked
+``cuda`` and skips with "no CUDA" on a machine without a GPU. The file
+imports neither JAX nor the JAX package, so it also runs where JAX is not
+installed (the repository's conftest imports JAX):
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -16,6 +17,10 @@ probabilities before the PV product, and the output), each by at most the
 bfloat16 unit roundoff 2**-8.
 """
 import os
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -542,6 +547,108 @@ def test_served_models_launch_the_kernels(cuda):
                                          device=cuda))
         assert torch.isfinite(out).all()
     assert (fa.launches, ssd_mod.launches) == (2, 2)
+
+
+def _flash_ssd_smoke(device):
+    """A smoke-width bf16 flash call (GQA, window, softcap) and a float32 SSD
+    call at mamba2's head and state sizes, as zero-argument functions."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(a * rng.standard_normal(shape, np.float32))
+               .to(device, torch.bfloat16) for a, shape in
+               ((4.0, (1, 256, 4, 64)), (4.0, (1, 256, 2, 64)),
+                (1.0, (1, 256, 2, 64))))
+    x = torch.from_numpy(rng.standard_normal((1, 512, 4, 64), np.float32))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((1, 512, 4), np.float32)))
+    A = -torch.exp(torch.from_numpy(rng.standard_normal(4).astype(np.float32)))
+    B, C = (torch.from_numpy(rng.standard_normal((1, 512, 128), np.float32))
+            for _ in range(2))
+    args = [t.to(device) for t in (x, dt, A, B, C, torch.full((4,), 0.5))]
+    return (lambda: ops.flash_attention(q, k, v, window=100, softcap=50.0),
+            lambda: ops.ssd(*args, chunk=256))
+
+
+@pytest.mark.cuda
+def test_flash_and_ssd_from_two_threads_on_two_streams(cuda):
+    """The fleet's concurrency: a flash call and an SSD call repeated on two
+    streams from two threads at once give outputs equal bit for bit to the
+    same calls made one after the other, and the locked launch counters
+    hold exactly the calls made."""
+    calls = _flash_ssd_smoke(cuda)
+    want = [calls[0](), calls[1]()[0]]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in calls]
+    reps = 50
+    start = threading.Barrier(len(calls), timeout=60)
+    fa.launches = ssd_mod.launches = 0
+    fa.kernel_launches = dict.fromkeys(fa.kernel_launches, 0)
+
+    def work(i):
+        with torch.cuda.stream(streams[i]):
+            cur = torch.cuda.current_stream(cuda)
+            assert cur == streams[i] != torch.cuda.default_stream(cuda)
+            start.wait()
+            outs = [calls[i]() for _ in range(reps)]
+            streams[i].synchronize()
+        return [o if i == 0 else o[0] for o in outs]
+
+    with ThreadPoolExecutor(max_workers=len(calls)) as pool:
+        got = list(pool.map(work, range(len(calls)), timeout=300))
+    for i, outs in enumerate(got):
+        for out in outs:
+            assert torch.equal(out, want[i])
+    assert (fa.launches, ssd_mod.launches) == (reps, reps)
+    assert fa.kernel_launches == {"wgmma": reps, "fp32": 0}
+
+
+class _YieldingInt(int):
+    """A counter stub: its addition hands the interpreter to the other
+    thread (``time.sleep(0)`` releases the GIL) between a counter's read and
+    its write, so an unlocked ``+=`` loses every update the other thread
+    makes in between."""
+
+    def __add__(self, other):
+        time.sleep(0)
+        return _YieldingInt(int(self) + other)
+
+
+@pytest.mark.parametrize("mod,kernel", [(fa, "wgmma"), (ssd_mod, None),
+                                        (dec, "mma"), (gmm_mod, "wgmma")],
+                         ids=["flash", "ssd", "decode", "gmm"])
+def test_launch_counters_lose_no_update_between_threads(mod, kernel):
+    """More threads than cores raising one binding's counters, as serving
+    engines on several threads do, through the function each wrapper calls
+    where it launches its kernel, with the counters replaced by stubs that
+    yield mid-update and the switch interval shortened: the lock must keep
+    every update."""
+    n = 1000
+    workers = (os.cpu_count() or 1) + 1
+    saved = (mod.launches, dict(getattr(mod, "kernel_launches", {})))
+    mod.launches = _YieldingInt(0)
+    if kernel is not None:
+        mod.kernel_launches = {k: _YieldingInt(0)
+                               for k in mod.kernel_launches}
+    count = (lambda: mod._count(kernel)) if kernel else mod._count
+    start = threading.Barrier(workers, timeout=60)
+
+    def hammer(_):
+        start.wait()
+        for _ in range(n):
+            count()
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            list(pool.map(hammer, range(workers), timeout=120))
+        got = (mod.launches,
+               mod.kernel_launches[kernel] if kernel else workers * n)
+    finally:
+        sys.setswitchinterval(interval)
+        mod.launches = saved[0]
+        if kernel is not None:
+            mod.kernel_launches = saved[1]
+    assert got == (workers * n, workers * n)
 
 
 def _gmm_inputs(rng, t, d, f, e, dtype, device, sizes=None):

@@ -30,6 +30,12 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.scenarios.trace"} <= set(mods)
     assert {"repro_torch.training.train", "repro_torch.distributed.checkpoint",
             "repro_torch.data.pipeline", "repro_torch.launch.train"} <= set(mods)
+    assert {"repro_torch.obs", "repro_torch.obs.metrics",
+            "repro_torch.obs.spans", "repro_torch.obs.profiler",
+            "repro_torch.obs.report", "repro_torch.cluster.node",
+            "repro_torch.cluster.router", "repro_torch.cluster.telemetry",
+            "repro_torch.core.adaptivity",
+            "repro_torch.launch.serve_fleet"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -62,12 +68,14 @@ def test_forbidden_pattern_catches_what_it_should():
 
 
 @pytest.mark.parametrize("entry", ["build_handle", "LM", "init_params",
-                                   "from_jax_params", "Trainer", "restore"])
+                                   "from_jax_params", "Trainer", "restore",
+                                   "serve_fleet"])
 def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch.configs import smoke_config
     from repro_torch.convert import from_jax_params
     from repro_torch.distributed import CheckpointManager
+    from repro_torch.launch import serve_fleet
     from repro_torch.launch.serve import build_handle
     from repro_torch.models import LM, init_params
     from repro_torch.training import TrainConfig, Trainer
@@ -79,6 +87,8 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch, tmp_path):
         "from_jax_params": lambda: from_jax_params({"a": [1.0]}),
         "Trainer": lambda: Trainer(cfg=cfg, tcfg=TrainConfig(), data=iter(())),
         "restore": lambda: CheckpointManager(str(tmp_path)).restore(),
+        "serve_fleet": lambda: serve_fleet.main(["--epochs", "1",
+                                                 "--duration", "0.1"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
