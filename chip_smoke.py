@@ -59,7 +59,12 @@ Phases, each of which raises (exit code != 0) on any failure:
    ms and ms per decoded token; a profiled step of each must run
    ``decode_mma_kernel`` once per attention layer by the profiler's kernel
    names, and neither fp32 kernel, and a profiled prefill the wgmma flash
-   instance of its head dim once per attention layer;
+   instance of its head dim once per attention layer; two threads, each on
+   its own CUDA stream, decode at once through the bf16 kernel at
+   gemma2-2b's global shape (several splits merged in the launch): every
+   output must equal the same call made in turn bit for bit (each stream
+   merges on its own tickets; the outputs that differ with one ticket
+   buffer shared by the two streams are counted and printed, not gated);
 8. MoE: the grouped-matmul kernel against its plain version (the
    reference's cases, empty groups, one group of every row, groups ending
    mid-tile, and phi3.5-moe's and qwen3-moe's full-width prefill and decode
@@ -140,6 +145,23 @@ Phases, each of which raises (exit code != 0) on any failure:
    threads beside its calibrated time alone and beside an epoch of the
    node's streams served with no other worker running, and each epoch's
    wall beside the nodes' summed busy seconds.
+
+13. the scheduler's simulator, on the host (no CUDA): the port's
+   ``repro_torch.core`` and ``repro_torch.scenarios`` as
+   ``examples/quickstart.py``, ``supernet_switching.py`` and
+   ``scenario_fuzz.py`` drive the JAX package's. The paper's five scenarios
+   and Chat_Assistant and Voice_Agent on 4K_1WS2OS under FCFS, Veltair,
+   Planaria and DREAM-Full for 4 s simulated: UXCost, DLV, energy, frames
+   and drops of each pair, DREAM's UXCost against each baseline and the
+   geomean over the five, the supernet's subnet shares at 50% and 99%
+   cascade, and the phase's host seconds with the CPU's model. These are
+   outputs of the analytic cost model of the paper's sub-accelerators, not
+   measurements of the card. It fails if a run and its rerun on the same
+   seed differ in any field, if a run recorded to JSONL and replayed
+   through ``load_trace`` differs from the live run in UXCost, frames or
+   windows, if ``EngineConfig("scalar")`` differs from ``"soa"`` under
+   DREAM-Full on any of the seven scenarios, or if the record and replay
+   of ``scenario_fuzz.py`` fails on fuzzed seeds 0-3.
 
 The ``kernels`` line's launches add up each kernel's counted runs: flash
 over the two serving runs, the fleet's epochs and the counted prefills of
@@ -1599,8 +1621,92 @@ DECODE_FULL_WIDTH = [
 ]
 
 
+#: calls of each thread in the two-stream decode check, and the cycles
+#: (~6 ms) each stream sleeps on the device while they are queued
+TWO_STREAM_REPS = 50
+TWO_STREAM_SLEEP = 10_000_000
+
+
+def check_decode_two_streams(torch, gen) -> None:
+    """Two threads, each on its own CUDA stream, decode at once through the
+    bf16 mma kernel at gemma2-2b's global shape, where the splits merge in
+    the launch on the per-(sequence, KV head) tickets: every output must
+    equal the same call made in turn bit for bit. Each stream first sleeps
+    on the device (``TWO_STREAM_SLEEP``) while its thread queues all its
+    calls, so that the two streams' kernels then run back to back on the
+    device side by side, not paced by the host. The same threads are then
+    run once more with one ticket buffer shared by both streams, and the
+    outputs that differ are counted and printed (whether they differ depends
+    on the two kernels overlapping, so that count is not gated)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+    label, s, n, k, h, win, cap, pos_list = DECODE_KERNEL_CASES[1]
+    splits = dec.num_splits(1, k, s, win, n // k, h)
+    if splits < 2:
+        raise AssertionError(f"two streams: {label} runs {splits} split")
+    calls = []
+    for _ in range(2):
+        q, kc, vc = decode_inputs(torch, gen, 1, s, n, k, h, torch.bfloat16)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+        calls.append(lambda q=q, kc=kc, vc=vc, pos=pos: ops.decode_attention(
+            q, kc, vc, pos, window=win, softcap=cap))
+    want = [c() for c in calls]
+    torch.cuda.synchronize()
+    if torch.equal(want[0], want[1]):
+        raise AssertionError("two streams: the two inputs give one output")
+    streams = [torch.cuda.Stream() for _ in calls]
+
+    def both():
+        start = threading.Barrier(2, timeout=60)
+
+        def work(i):
+            with torch.cuda.stream(streams[i]):
+                start.wait()
+                torch.cuda._sleep(TWO_STREAM_SLEEP)
+                outs = [calls[i]() for _ in range(TWO_STREAM_REPS)]
+                streams[i].synchronize()
+            return outs
+
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            got = list(pool.map(work, range(2), timeout=300))
+        return sum(not torch.equal(o, want[i])
+                   for i, outs in enumerate(got) for o in outs)
+
+    before = dec.kernel_launches["mma"]
+    t0 = time.perf_counter()
+    bad = both()
+    wall = time.perf_counter() - t0
+    if dec.kernel_launches["mma"] != before + 2 * TWO_STREAM_REPS:
+        raise AssertionError(f"two streams: {dec.kernel_launches} after "
+                             f"{2 * TWO_STREAM_REPS} calls")
+    if bad:
+        raise AssertionError(f"two streams: {bad} of {2 * TWO_STREAM_REPS} "
+                             f"outputs differ from the calls made in turn")
+    own = {key for key in dec._tickets
+           if key[1] in {st.cuda_stream for st in streams}}
+    if len(own) != 2:
+        raise AssertionError(f"two streams: ticket buffers {sorted(own)}")
+    shared = torch.zeros(k, dtype=torch.int32, device="cuda")
+    per_stream = dec._tickets_for
+    dec._tickets_for = lambda device, n: shared
+    try:
+        bad_shared = both()
+    finally:
+        dec._tickets_for = per_stream
+    torch.cuda.synchronize()
+    log(f"[decode] two streams: {label} bf16 ({splits} splits), "
+        f"{TWO_STREAM_REPS} calls queued behind a device sleep on each of two "
+        f"threads and streams at once, {wall:.3f} s: all {2 * TWO_STREAM_REPS} outputs equal the calls "
+        f"made in turn bit for bit, one ticket buffer per stream; with one "
+        f"buffer shared by both streams {bad_shared} of "
+        f"{2 * TWO_STREAM_REPS} outputs differed (not gated)")
+
+
 def decode(torch, gen):
     headline = check_decode_kernel(torch, gen)
+    check_decode_two_streams(torch, gen)
     check_decode_models(torch)
     runs = {arch: decode_full_width(torch, arch, prompt=prompt, steps=steps,
                                     max_seq=max_seq, seed=seed)
@@ -2715,6 +2821,163 @@ def mesh_phase(torch, card: str, phase10_ms: float, handoff: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the scheduler's simulator (host code, no CUDA)
+# ---------------------------------------------------------------------------
+
+
+SIM_SYSTEM = "4K_1WS2OS"
+SIM_DURATION_S = 4.0
+#: the paper's five scenarios (``core.workloads.SCENARIOS``), then the two
+#: generative ones of the registry
+SIM_EXTRA_SCENARIOS = ("Chat_Assistant", "Voice_Agent")
+SIM_BASELINES = ("FCFS", "Veltair", "Planaria")
+SIM_FUZZ_SEEDS = range(4)
+
+
+def sim_fields(r) -> tuple:
+    """Every field of a ``SimResult`` a rerun must reproduce."""
+    return (r.uxcost, r.dlv_rate, r.norm_energy, r.frames, r.drops, r.aborts,
+            r.variant_counts, r.windows, r.acc_utilization,
+            r.pipeline_latency_s, dataclasses.asdict(r.stats))
+
+
+def host_cpu() -> str:
+    """The host CPU's model and core count: ``lscpu``'s model name (it names
+    ARM cores, which /proc/cpuinfo does not), else the machine type."""
+    import platform
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        out = ""
+    for line in out.splitlines():
+        if line.startswith("Model name:"):
+            return (f"{line.split(':', 1)[1].strip()} "
+                    f"({platform.machine()}) x {os.cpu_count()}")
+    return f"{platform.machine()} x {os.cpu_count()}"
+
+
+def sim_replayed(core, scenario, scheduler_factory, live, trace, path: Path,
+                 what: str, **kw):
+    """``trace`` written to ``path`` as JSONL, read back through
+    ``load_trace`` and replayed: raises unless the replay's UXCost, frames
+    and windows equal the live run's."""
+    from repro_torch.scenarios import load_trace, save_trace
+    save_trace(trace, str(path))
+    rep = core.Simulator(scenario, SIM_SYSTEM, scheduler_factory(),
+                         replay=load_trace(str(path)), **kw).run()
+    if (rep.uxcost, rep.frames, rep.windows) != (live.uxcost, live.frames,
+                                                  live.windows):
+        raise AssertionError(f"{what}: the replay of its trace differs "
+                             f"(UXCost {rep.uxcost} vs {live.uxcost}, frames "
+                             f"{rep.frames} vs {live.frames})")
+    return rep
+
+
+def sim_phase(card: str) -> None:
+    """The port's simulator as the three examples drive the JAX package's:
+    the seven scenarios under the three baselines and DREAM-Full, each run
+    twice, the simulated ones recorded and replayed, DREAM-Full under the
+    scalar engine beside the vectorised one, the supernet's subnet choice,
+    and the fuzzed record and replay. Catches nothing; launches nothing."""
+    from repro_torch import core
+    from repro_torch.core.baselines import FCFSScheduler, VeltairLikeScheduler
+    from repro_torch.scenarios import fuzz_phase_script, fuzz_scenario
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "sim_traces"
+    out.mkdir(parents=True, exist_ok=True)
+    tag = (f"analytic model of the paper's sub-accelerators, run on the host "
+           f"({host_cpu()}), not measured on the card")
+    factories = {"FCFS": FCFSScheduler, "Veltair": VeltairLikeScheduler,
+                 "DREAM-Full": core.dream_full}
+    paper = tuple(core.SCENARIOS)
+    ratios = {b: [] for b in SIM_BASELINES}
+    log(f"[sim] {SIM_SYSTEM}, {SIM_DURATION_S} s simulated, seed 0, cascade "
+        f"0.5; UXCost, DLV, energy, frames, drops are outputs of the {tag}")
+    for name in paper + SIM_EXTRA_SCENARIOS:
+        scn = core.build_scenario(name, 0.5)
+        res = {}
+        for sched in SIM_BASELINES[:2] + ("Planaria", "DREAM-Full"):
+            what = f"{name} {sched}"
+            if sched == "Planaria":
+                runs = [core.run_planaria(scn, SIM_SYSTEM,
+                                          duration_s=SIM_DURATION_S)
+                        for _ in range(2)]
+            else:
+                sim = core.Simulator(scn, SIM_SYSTEM, factories[sched](),
+                                     duration_s=SIM_DURATION_S, record=True)
+                runs = [sim.run(), core.run_sim(
+                    scn, SIM_SYSTEM, factories[sched],
+                    duration_s=SIM_DURATION_S)]
+                sim_replayed(core, scn, factories[sched], runs[0], sim.trace,
+                             out / f"{name}_{sched}.jsonl", what,
+                             duration_s=SIM_DURATION_S)
+            if sim_fields(runs[0]) != sim_fields(runs[1]):
+                raise AssertionError(f"{what}: two runs of seed 0 differ")
+            r = res[sched] = runs[0]
+            log(f"[sim] {name:>14s} {sched:>10s} UXCost={r.uxcost} "
+                f"DLV={r.dlv_rate} energy={r.norm_energy} frames={r.frames} "
+                f"drops={r.drops}")
+        scalar = core.run_sim(scn, SIM_SYSTEM, core.dream_full,
+                              duration_s=SIM_DURATION_S, engine="scalar")
+        soa = core.run_sim(scn, SIM_SYSTEM, core.dream_full,
+                           duration_s=SIM_DURATION_S, engine="soa")
+        if sim_fields(scalar) != sim_fields(soa) or sim_fields(soa) != \
+                sim_fields(res["DREAM-Full"]):
+            raise AssertionError(f"{name}: DREAM-Full under "
+                                 f"EngineConfig('scalar') differs from 'soa'")
+        rel = {b: res["DREAM-Full"].uxcost / res[b].uxcost
+               for b in SIM_BASELINES}
+        if name in paper:
+            for b in SIM_BASELINES:
+                ratios[b].append(rel[b])
+        log(f"[sim] {name:>14s} DREAM-Full UXCost relative to " + ", ".join(
+            f"{b} {100 * (x - 1):+.2f}%" for b, x in rel.items())
+            + "; scalar and soa engines equal on every field, the recorded "
+            "runs replayed from JSONL to the same UXCost, frames and windows")
+    log("[sim] geomean of DREAM-Full's UXCost over the paper's five "
+        "scenarios, relative to " + ", ".join(
+            f"{b} {100 * (math.exp(statistics.fmean(map(math.log, x))) - 1):+.2f}%"
+            for b, x in ratios.items()) + f" ({tag})")
+
+    for prob in (0.5, 0.99):
+        scn = core.build_scenario("AR_Social", prob)
+        with_sw = core.run_sim(scn, SIM_SYSTEM, core.dream_full, duration_s=6.0)
+        without = core.run_sim(scn, SIM_SYSTEM, core.dream_smartdrop,
+                               duration_s=6.0)
+        counts = {k: v for k, v in sorted(with_sw.variant_counts.items())
+                  if k.startswith("ctx_ofa")}
+        total = sum(counts.values())
+        log(f"[sim] supernet, AR_Social at cascade {prob}, 6 s: UXCost with "
+            f"switching {with_sw.uxcost} (DLV {with_sw.dlv_rate}), without "
+            f"{without.uxcost} (DLV {without.dlv_rate}); subnets "
+            + (", ".join(f"{k.split('@')[1] if '@' in k else 'original'} "
+                         f"{100 * v / total:.1f}%" for k, v in counts.items())
+               or "none switched"))
+
+    for seed in SIM_FUZZ_SEEDS:
+        builder = fuzz_scenario(seed)
+        script = fuzz_phase_script(seed, builder, duration_s=SIM_DURATION_S)
+        sim = core.Simulator(builder.build(), SIM_SYSTEM, core.dream_full(),
+                             duration_s=SIM_DURATION_S, seed=seed,
+                             phase_script=script, record=True)
+        live = sim.run()
+        rep = sim_replayed(core, builder.build(), core.dream_full, live,
+                           sim.trace, out / f"fuzz_{seed}.jsonl",
+                           f"fuzzed seed {seed}", duration_s=SIM_DURATION_S,
+                           seed=seed)
+        if rep.uxcost != live.uxcost:
+            raise AssertionError(f"fuzzed seed {seed}: replay diverged")
+        log(f"[sim] fuzzed seed {seed}: {len(builder.entries)} streams, "
+            f"phase shift {script.to_config()[0]['action']['kind']} at "
+            f"t={script.events[0][0]} s, {len(sim.trace.events)} trace "
+            f"events; DREAM-Full UXCost {live.uxcost} frames {live.frames}, "
+            f"replayed from JSONL bit-identical")
+    log(f"[sim] phase 13 took {time.perf_counter() - t0:.2f} s of host time "
+        f"on {host_cpu()} (card {card}, unused)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2785,11 +3048,16 @@ def main() -> int:
     # 11. the device mesh and the dry-run
     t_mesh = time.perf_counter()
     mesh_launches = mesh_phase(torch, card, train_ms, handoff)
+
+    # 13. the scheduler's simulator, on the host
+    t_sim = time.perf_counter()
+    sim_phase(card)
     log(f"[time] phases 1-7 {t_moe - t_start:.1f} s, phase 8 (MoE) "
         f"{t_archs - t_moe:.1f} s, phase 9 (archs) "
         f"{t_train - t_archs:.1f} s, phase 10 (training) "
         f"{t_mesh - t_train:.1f} s, phase 11 (mesh and dry-run) "
-        f"{time.perf_counter() - t_mesh:.1f} s")
+        f"{t_sim - t_mesh:.1f} s, phase 13 (simulator) "
+        f"{time.perf_counter() - t_sim:.1f} s")
     log(f"[launches] serving {launches}, fleet {fleet_launches}, decode "
         f"{dec_launches}, MoE "
         f"{moe_launches}, archs {arch_launches}, training {train_launches}, "

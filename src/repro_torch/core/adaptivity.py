@@ -43,7 +43,7 @@ class ProbeSearch:
     moves to the inverse-cost-weighted interpolation of the two best and
     the radius shrinks; below ``r_min`` the probe parks at the center.
 
-    Hosts: the JAX package's ``scheduler.AdaptivityState`` layers per-node
+    Hosts: ``scheduler.AdaptivityState`` layers per-node
     DLV-drift re-triggering on top; the fleet layer re-arms explicitly via
     :meth:`retrigger` on membership churn and phase events.
     """

@@ -76,9 +76,10 @@ def _count(kernel: str) -> None:
     with build.counter_lock:
         launches += 1
         kernel_launches[kernel] += 1
-#: per device index: the mma kernel's merge counters, int32, zero between
-#: calls
-_tickets: dict[int, torch.Tensor] = {}
+#: per (device index, CUDA stream): the mma kernel's merge counters, int32,
+#: zero between calls. A buffer is only ever used on its own stream, so two
+#: decodes on two streams at once never count into each other's tickets
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def kernel_for(q_dtype: torch.dtype, cache_dtype: torch.dtype) -> str:
@@ -129,11 +130,14 @@ def num_splits(b: int, kv: int, s: int, window: Optional[int],
 
 
 def _tickets_for(device: torch.device, n: int) -> torch.Tensor:
-    t = _tickets.get(device.index)
+    """At least ``n`` zeroed merge counters for the current stream of
+    ``device``, made (on that stream) the first time the stream asks."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    t = _tickets.get(key)
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 2 * t.numel() if t is not None else 0),
                         dtype=torch.int32, device=device)
-        _tickets[device.index] = t
+        _tickets[key] = t
     return t
 
 

@@ -409,6 +409,50 @@ def test_decode_bf16_call_runs_one_kernel(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_MERGED[:2],
+                         ids=[c[0] for c in DECODE_MERGED[:2]])
+def test_decode_bf16_from_two_threads_on_two_streams(cuda, case):
+    """Two threads, each on its own stream, decode at once through the mma
+    kernel at a shape that splits and merges: each stream counts into its
+    own merge tickets, so every output equals bit for bit the same call
+    made in turn. Each stream sleeps on the device while its thread queues
+    the calls, so that the two streams' kernels run side by side."""
+    _, s, n, kv, h, win, cap, p = case
+    assert dec.num_splits(1, kv, s, win, n // kv, h) > 1
+    inputs = []
+    for i in range(2):
+        rng = np.random.default_rng(47 + i)
+        q, k, v = _decode_inputs(rng, 1, s, n, kv, h, torch.bfloat16, cuda)
+        inputs.append((q, k, v, torch.tensor(p, dtype=torch.int32,
+                                             device=cuda)))
+    run = lambda i: ops.decode_attention(*inputs[i], window=win, softcap=cap)
+    want = [run(i) for i in range(2)]
+    torch.cuda.synchronize()
+    assert not torch.equal(want[0], want[1])
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    reps = 50
+    start = threading.Barrier(2, timeout=60)
+    before = dec.kernel_launches["mma"]
+
+    def work(i):
+        with torch.cuda.stream(streams[i]):
+            start.wait()
+            torch.cuda._sleep(10_000_000)
+            outs = [run(i) for _ in range(reps)]
+            streams[i].synchronize()
+        return outs
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        got = list(pool.map(work, range(2), timeout=300))
+    for i, outs in enumerate(got):
+        for out in outs:
+            assert torch.equal(out, want[i])
+    assert dec.kernel_launches["mma"] == before + 2 * reps
+    keys = {(torch.cuda.current_device(), st.cuda_stream) for st in streams}
+    assert keys <= set(dec._tickets)
+
+
+@pytest.mark.cuda
 def test_decode_bf16_group_of_16_at_head_dim_256(cuda):
     """The mma kernel takes a group of 16 at head_dim 256 (the fp32 kernel
     still refuses it), at one block and at several, with a window and a

@@ -36,6 +36,11 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
             "repro_torch.cluster.router", "repro_torch.cluster.telemetry",
             "repro_torch.core.adaptivity",
             "repro_torch.launch.serve_fleet"} <= set(mods)
+    assert {f"repro_torch.core.{m}" for m in (
+        "types", "engine", "zoo", "costmodel", "mapscore", "workloads",
+        "simulator", "scheduler", "baselines")} <= set(mods)
+    assert {f"repro_torch.scenarios.{m}" for m in (
+        "builder", "phases", "registry", "fuzzer")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
