@@ -162,6 +162,27 @@ Phases, each of which raises (exit code != 0) on any failure:
    windows, if ``EngineConfig("scalar")`` differs from ``"soa"`` under
    DREAM-Full on any of the seven scenarios, or if the record and replay
    of ``scenario_fuzz.py`` fails on fuzzed seeds 0-3.
+14. the fleet simulator, on the host (no CUDA): ``repro_torch.cluster`` at
+   ``benchmarks/fleet_sweep.py``'s sizes. The headline fleet (16 nodes of
+   its mix, one joining at 0.4 of the run and one draining at 0.5, 200
+   streams, 2.5 s, seed 0) under round_robin, least_loaded and score, the
+   score run recorded and replayed; the cascade fleet (8 nodes, 12 heavy
+   cascades, 2.5 s, seeds 0-2) under score_whole and stage-split score
+   with a ``TransferModel``, each split run replayed; the scale arm (256
+   nodes, 10 000 streams, 0.6 s); the seven golden traces of
+   ``tests/golden/``, each replayed twice; split seed 38014 at
+   ``tests/test_vectorized_equiv.py``'s shape under ``EngineConfig("soa")``
+   and ``"scalar"``. Each run prints UXCost, DLV, energy, frames and
+   migrations (outputs of the analytic model), its wall seconds and
+   simulated stream-seconds per wall second (host numbers, with the CPU's
+   model). It fails unless the score replay equals the live run in UXCost,
+   frames, pipeline latency and the final placements, UXCost(round_robin)
+   / UXCost(score) > 1, the split UXCost summed over the seeds is no worse
+   than the whole-pipeline one, each golden replay has the manifest's
+   frames and its UXCost within a relative 1e-12, a second replay equals
+   the first, the scalar and soa runs are equal in every field, and the
+   scale arm served frames. Whether each golden digest matches the
+   manifest's is printed, not gated.
 
 The ``kernels`` line's launches add up each kernel's counted runs: flash
 over the two serving runs, the fleet's epochs and the counted prefills of
@@ -2978,6 +2999,273 @@ def sim_phase(card: str) -> None:
         f"on {host_cpu()} (card {card}, unused)")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the fleet simulator (host code, no CUDA)
+# ---------------------------------------------------------------------------
+
+#: ``benchmarks/fleet_sweep.py``'s node mix, population scale and sizes
+FLEET_SYSTEMS_MIX = ("4K_2WS", "8K_2OS", "4K_1WS2OS", "8K_1OS2WS",
+                     "8K_2WS", "4K_2OS", "8K_1WS2OS", "4K_1OS2WS")
+FLEET_FPS_SCALE = 0.25
+FLEET_HEADLINE = dict(seed=0, n_nodes=16, n_streams=200, duration_s=2.5)
+FLEET_POLICIES = ("round_robin", "least_loaded", "score")
+CASCADE_SYSTEMS = ("4K_2WS", "8K_2OS", "4K_2OS", "8K_2WS",
+                   "8K_2WS", "4K_2OS", "8K_2OS", "4K_2WS")
+#: ``fleet_sweep.run``'s cascade arm at the headline's defaults:
+#: max(16 // 2, 8) nodes, max(200 // 16, 10) streams, seeds 0-2
+CASCADE_ARM = dict(n_nodes=8, n_streams=12, duration_s=2.5, n_seeds=3)
+SCALE_ARM = dict(seed=0, n_nodes=256, n_streams=10_000, duration_s=0.6,
+                 fps_scale=0.08)
+#: ``tests/test_vectorized_equiv.py``'s split shape, at the seed where the
+#: JAX package's scan fleet clock reads stale telemetry
+SPLIT_SEED = 38014
+GOLDEN_UXCOST_RTOL = 1e-12
+
+
+def build_fleet(cl, seed: int, n_nodes: int, n_streams: int,
+                duration_s: float):
+    """``fleet_sweep.build_fleet`` with churn: a node joins at 0.4 of the
+    run and the first drains at 0.5."""
+    b = cl.FleetScenarioBuilder(f"fleet_sweep_{seed}")
+    nids = [b.node(FLEET_SYSTEMS_MIX[i % len(FLEET_SYSTEMS_MIX)])
+            for i in range(n_nodes)]
+    b.node(FLEET_SYSTEMS_MIX[n_nodes % len(FLEET_SYSTEMS_MIX)],
+           at=round(0.4 * duration_s, 6))
+    b.node_drain(nids[0], at=round(0.5 * duration_s, 6))
+    b.fuzz_streams(cl.FuzzSpec(n_streams=n_streams, seed=seed, t0=0.0,
+                               t1=round(0.5 * duration_s, 6),
+                               fps_scale=FLEET_FPS_SCALE))
+    return b.build()
+
+
+def build_cascade_fleet(cl, seed: int, n_nodes: int, n_streams: int,
+                        duration_s: float):
+    """``fleet_sweep.build_cascade_fleet`` with churn: heavy 2-3 stage
+    cascades at full FPS on a dataflow-polarised pool, one drain."""
+    b = cl.FleetScenarioBuilder(f"cascade_sweep_{seed}")
+    nids = [b.node(CASCADE_SYSTEMS[i % len(CASCADE_SYSTEMS)])
+            for i in range(n_nodes)]
+    b.node_drain(nids[0], at=round(0.5 * duration_s, 6))
+    b.fuzz_streams(cl.FuzzSpec(
+        n_streams=n_streams, seed=seed, t0=0.0,
+        t1=round(0.5 * duration_s, 6), fps_scale=1.0,
+        deterministic_arrivals=True,
+        cascade=cl.CascadeFuzz(prob=1.0, max_depth=3, only=True)))
+    return b.build()
+
+
+def build_scale_fleet(cl, seed: int, n_nodes: int, n_streams: int,
+                      duration_s: float, fps_scale: float):
+    """``fleet_sweep.build_scale_fleet``: one drain at mid-run."""
+    b = cl.FleetScenarioBuilder(f"scale_sweep_{seed}")
+    nids = [b.node(FLEET_SYSTEMS_MIX[i % len(FLEET_SYSTEMS_MIX)])
+            for i in range(n_nodes)]
+    b.node_drain(nids[0], at=round(0.5 * duration_s, 6))
+    b.fuzz_streams(cl.FuzzSpec(n_streams=n_streams, seed=seed, t0=0.0,
+                               t1=round(0.6 * duration_s, 6),
+                               fps_scale=fps_scale))
+    return b.build()
+
+
+def build_split_fleet(cl, seed: int, duration_s: float = 1.0):
+    """``test_vectorized_equiv.build_scenario("split", seed)``: 4 nodes,
+    8 deterministic cascades, every stage routed on its own."""
+    b = cl.FleetScenarioBuilder(f"equiv_split_{seed}")
+    for i in range(4):
+        b.node(FLEET_SYSTEMS_MIX[i])
+    b.fuzz_streams(cl.FuzzSpec(
+        n_streams=8, seed=seed, t0=0.0, t1=round(0.5 * duration_s, 6),
+        fps_scale=1.0, deterministic_arrivals=True,
+        cascade=cl.CascadeFuzz(prob=1.0, max_depth=3, only=True)))
+    return b.build()
+
+
+def fleet_fields(fs, r) -> dict:
+    """Every field of a ``FleetResult`` (the trace as its bytes) and the
+    final placements."""
+    from repro_torch.cluster import dumps
+    out = {f.name: getattr(r, f.name) for f in dataclasses.fields(r)
+           if f.name != "trace"}
+    out["trace"] = None if r.trace is None else dumps(r.trace)
+    out["stream_node"] = dict(fs.stream_node)
+    out["stage_node"] = dict(fs.stage_node)
+    return out
+
+
+def golden_digest(r, fs) -> str:
+    """``tests/golden/regen.py``'s digest of a replayed result."""
+    import hashlib
+    payload = {
+        "uxcost": repr(r.uxcost), "frames": r.frames,
+        "dlv_rate": repr(r.dlv_rate), "norm_energy": repr(r.norm_energy),
+        "stream_seconds": repr(r.stream_seconds),
+        "pipeline_latency_s": repr(r.pipeline_latency_s),
+        "pipe_frames": r.pipe_frames, "migrations": r.migrations,
+        "departures": r.departures, "jobs_purged": r.jobs_purged,
+        "swaps": r.swaps, "rejections": r.rejections,
+        "tier_dlv": {str(k): repr(v) for k, v in sorted(r.tier_dlv.items())},
+        "weights": ([repr(w) for w in r.weights]
+                    if r.weights is not None else None),
+        "stream_node": {str(k): v for k, v in sorted(fs.stream_node.items())},
+        "stage_node": {f"{k[0]}:{k[1]}": v
+                       for k, v in sorted(fs.stage_node.items())},
+    }
+    return hashlib.sha256(json.dumps(payload, sort_keys=True).encode()
+                          ).hexdigest()
+
+
+def fleet_sim_phase(card: str) -> None:
+    """The port's fleet simulator at ``benchmarks/fleet_sweep.py``'s sizes:
+    the headline fleet under three policies (the score run recorded and
+    replayed), the cascade fleet whole-pipeline against stage-split, the
+    scale arm, the seven golden traces replayed twice, and split seed
+    38014 under the vectorised and the scalar engine. Catches nothing;
+    launches nothing."""
+    from repro_torch import cluster as cl
+    from repro_torch.core.engine import EngineConfig
+    t0 = time.perf_counter()
+    tag = (f"host seconds of the analytic model on {host_cpu()}, not the "
+           f"card")
+    log(f"[fleetsim] UXCost, DLV, energy, frames and migrations are outputs "
+        f"of the analytic model of the paper's sub-accelerators; wall and "
+        f"stream-seconds per wall second are {tag}")
+
+    def fleet_run(label: str, *args, **kw):
+        """One fleet run, timed on the host clock and printed with its
+        rate."""
+        fs = cl.FleetSimulator(*args, **kw)
+        w0 = time.perf_counter()
+        r = fs.run()
+        wall = time.perf_counter() - w0
+        log(f"[fleetsim] {label}: UXCost={r.uxcost} DLV={r.dlv_rate} "
+            f"energy={r.norm_energy} frames={r.frames} "
+            f"migrations={r.migrations} wall={wall:.4f} s "
+            f"stream_s={r.stream_seconds} stream_s_per_wall_s="
+            f"{r.stream_seconds / max(wall, 1e-9):.1f} ({tag})")
+        return fs, r
+
+    # 1. the headline fleet
+    h = FLEET_HEADLINE
+    fscn = build_fleet(cl, **h)
+    res = {}
+    for policy in FLEET_POLICIES:
+        fs, r = fleet_run(
+            f"headline {h['n_nodes']}+1 nodes, {h['n_streams']} streams, "
+            f"{h['duration_s']} s, {policy}", fscn, policy,
+            duration_s=h["duration_s"], seed=h["seed"],
+            record=(policy == "score"))
+        res[policy] = (fs, r)
+    fs, r = res["score"]
+    rfs, rep = fleet_run("headline score, replayed",
+                         replay=cl.loads(cl.dumps(r.trace)))
+    live_view = (r.uxcost, r.frames, r.pipeline_latency_s,
+                 dict(fs.stream_node), dict(fs.stage_node))
+    rep_view = (rep.uxcost, rep.frames, rep.pipeline_latency_s,
+                dict(rfs.stream_node), dict(rfs.stage_node))
+    if rep_view != live_view:
+        raise AssertionError("headline score run: its replay differs "
+                             f"(UXCost {rep.uxcost} vs {r.uxcost}, frames "
+                             f"{rep.frames} vs {r.frames})")
+    rr_over_score = res["round_robin"][1].uxcost / r.uxcost
+    if not rr_over_score > 1.0:
+        raise AssertionError(f"UXCost(round_robin)/UXCost(score) = "
+                             f"{rr_over_score}, not above 1")
+    log(f"[fleetsim] headline: UXCost(round_robin)/UXCost(score) = "
+        f"{rr_over_score}; UXCost(least_loaded)/UXCost(score) = "
+        f"{res['least_loaded'][1].uxcost / r.uxcost}; the score run's "
+        f"replay equals it in UXCost, frames, pipeline latency and the "
+        f"final placements")
+
+    # 2. the cascade fleet, whole pipeline against stage split
+    c = CASCADE_ARM
+    transfer = cl.TransferModel()
+    totals = {"whole": 0.0, "split": 0.0}
+    for seed in range(c["n_seeds"]):
+        cscn = build_cascade_fleet(cl, seed, c["n_nodes"], c["n_streams"],
+                                   c["duration_s"])
+        label = (f"cascade {c['n_nodes']} nodes, {c['n_streams']} streams, "
+                 f"{c['duration_s']} s, seed {seed}")
+        _, whole = fleet_run(f"{label}, score_whole", cscn, "score_whole",
+                             duration_s=c["duration_s"], seed=seed,
+                             transfer=transfer, split_stages=True)
+        sfs, split = fleet_run(f"{label}, score split", cscn, "score",
+                               duration_s=c["duration_s"], seed=seed,
+                               transfer=transfer, split_stages=True,
+                               record=True)
+        _, srep = fleet_run(f"{label}, split replayed",
+                            replay=cl.loads(cl.dumps(split.trace)))
+        if (srep.uxcost, srep.frames, srep.xfer_energy_j) != (
+                split.uxcost, split.frames, split.xfer_energy_j):
+            raise AssertionError(f"{label}: the split run's replay differs")
+        n_split = sum(1 for sid, sv in sfs.streams.items()
+                      if len({sfs.stage_node[(sid, k)]
+                              for k in range(sv.n_stages)}) > 1)
+        log(f"[fleetsim] {label}: UXCost(whole)/UXCost(split) = "
+            f"{whole.uxcost / split.uxcost}; {n_split} streams split across "
+            f"nodes, {split.trigger_transfers} cross-node triggers")
+        totals["whole"] += whole.uxcost
+        totals["split"] += split.uxcost
+    if not totals["split"] <= totals["whole"]:
+        raise AssertionError(f"stage-split UXCost {totals['split']} is worse "
+                             f"than whole-pipeline {totals['whole']}")
+    log(f"[fleetsim] cascade: summed over {c['n_seeds']} seeds, "
+        f"UXCost(whole)/UXCost(split) = {totals['whole'] / totals['split']}")
+
+    # 3. the scale arm
+    sc = SCALE_ARM
+    sscn = build_scale_fleet(cl, **sc)
+    _, big = fleet_run(
+        f"scale {sc['n_nodes']} nodes, {sc['n_streams']} streams, "
+        f"{sc['duration_s']} s, score", sscn, "score",
+        duration_s=sc["duration_s"], seed=sc["seed"],
+        rebalance_every_s=10.0 * sc["duration_s"])
+    if big.frames <= 0:
+        raise AssertionError("the scale arm served no frames")
+
+    # 4. the golden traces
+    golden = ROOT / "tests" / "golden"
+    manifest = json.loads((golden / "manifest.json").read_text())
+    for name, entry in sorted(manifest.items()):
+        text = (golden / f"{name}.trace.json").read_text()
+        runs = [fleet_run(f"golden {name}, replay {i + 1}",
+                          replay=cl.loads(text)) for i in range(2)]
+        (fs1, r1), (fs2, r2) = runs
+        if fleet_fields(fs1, r1) != fleet_fields(fs2, r2):
+            raise AssertionError(f"golden {name}: two replays differ")
+        rel = abs(r1.uxcost - entry["uxcost"]) / abs(entry["uxcost"])
+        if r1.frames != entry["frames"] or rel > GOLDEN_UXCOST_RTOL:
+            raise AssertionError(
+                f"golden {name}: frames {r1.frames} (manifest "
+                f"{entry['frames']}), UXCost {r1.uxcost} (manifest "
+                f"{entry['uxcost']}, relative {rel})")
+        log(f"[fleetsim] golden {name}: frames equal the manifest's, UXCost "
+            f"within {rel} of it, two replays equal; digest "
+            + ("equals the manifest's" if golden_digest(r1, fs1)
+               == entry["result_sha256"] else "differs from the manifest's "
+               "(not gated: the digests drift under the installed numpy)"))
+
+    # 5. split seed 38014, vectorised against scalar
+    views = {}
+    for engine in ("soa", "scalar"):
+        fs, r = fleet_run(
+            f"split seed {SPLIT_SEED}, 4 nodes, 8 cascades, 1.0 s, "
+            f"EngineConfig({engine!r})", build_split_fleet(cl, SPLIT_SEED),
+            "score", duration_s=1.0, seed=SPLIT_SEED, record=True,
+            split_stages=True, transfer=cl.TransferModel(),
+            engine=EngineConfig(engine))
+        views[engine] = fleet_fields(fs, r)
+    if views["soa"] != views["scalar"]:
+        diff = sorted(k for k in views["soa"]
+                      if views["soa"][k] != views["scalar"][k])
+        raise AssertionError(f"split seed {SPLIT_SEED}: the scalar engine "
+                             f"differs from soa in {diff}")
+    log(f"[fleetsim] split seed {SPLIT_SEED}: scalar and soa engines equal "
+        f"in every field and the trace bytes ({views['soa']['frames']} "
+        f"frames)")
+    log(f"[fleetsim] phase 14 took {time.perf_counter() - t0:.2f} s of host "
+        f"time on {host_cpu()} (card {card}, unused)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3052,12 +3340,17 @@ def main() -> int:
     # 13. the scheduler's simulator, on the host
     t_sim = time.perf_counter()
     sim_phase(card)
+
+    # 14. the fleet simulator, on the host
+    t_fleetsim = time.perf_counter()
+    fleet_sim_phase(card)
     log(f"[time] phases 1-7 {t_moe - t_start:.1f} s, phase 8 (MoE) "
         f"{t_archs - t_moe:.1f} s, phase 9 (archs) "
         f"{t_train - t_archs:.1f} s, phase 10 (training) "
         f"{t_mesh - t_train:.1f} s, phase 11 (mesh and dry-run) "
         f"{t_sim - t_mesh:.1f} s, phase 13 (simulator) "
-        f"{time.perf_counter() - t_sim:.1f} s")
+        f"{t_fleetsim - t_sim:.1f} s, phase 14 (fleet simulator) "
+        f"{time.perf_counter() - t_fleetsim:.1f} s")
     log(f"[launches] serving {launches}, fleet {fleet_launches}, decode "
         f"{dec_launches}, MoE "
         f"{moe_launches}, archs {arch_launches}, training {train_launches}, "

@@ -7,6 +7,9 @@
   port's router of the same policy gets the same stream and node objects
   (duck-typed: it needs nothing more of them), and at every telemetry
   window the same window and an identical copy of the tuner's generator;
+  and the same inside the port's fleet simulator, with the reference's
+  router as the shadow, making the same decisions (node ids, scores and
+  tuned weights) as the run inside the reference's;
 * ``repro_torch.cluster.telemetry.FleetTelemetry`` fed the nodes and counters
   the reference fleet feeds its own, at every tune tick;
 * ``repro_torch.launch.serve_fleet`` against ``examples/serve_fleet.py``:
@@ -30,11 +33,13 @@ import pytest
 
 import repro.cluster.router as ref_router
 import repro.core.adaptivity as ref_adapt
+import repro_torch.cluster as port_cluster
 import repro_torch.cluster.router as port_router
 import repro_torch.core.adaptivity as port_adapt
 from repro.cluster import FleetSimulator, TransferModel
 from repro.cluster.telemetry import FleetTelemetry as RefFleetTelemetry
 from repro.core.uxcost import WindowStats as RefWindowStats
+from _torch_sim_parity import plain
 from repro_torch.cluster.telemetry import FleetTelemetry as PortFleetTelemetry
 from repro_torch.cluster.telemetry import TelemetryWindow as PortWindow
 from repro_torch.core.uxcost import WindowStats as PortWindowStats
@@ -176,17 +181,24 @@ def _probe_view(pol) -> tuple:
             pol.held_windows, _coord_state(pol.probe))
 
 
-def shadowed(policy: str, vectorized: bool, budget_aware: bool = False,
-             **kw):
-    """A reference router of ``policy`` whose every decision is also made
-    by the port's router of the same policy, and compared."""
-    ref_cls = ref_router.POLICIES[policy]
+ROUTERS = {"ref": (ref_router, port_router), "port": (port_router, ref_router)}
 
-    class Shadow(ref_cls):
+
+def shadowed(policy: str, vectorized: bool, budget_aware: bool = False,
+             host: str = "ref", **kw):
+    """A router of ``policy`` from package ``host`` whose every decision is
+    also made by the other package's router of the same policy, and
+    compared. The shadow is ``.other``; ``.log`` keeps the decisions: node
+    ids, score bits and tuned weights."""
+    host_router, other_router = ROUTERS[host]
+    host_cls = host_router.POLICIES[policy]
+
+    class Shadow(host_cls):
         def __init__(self):
             super().__init__(**kw)
-            self.port = port_router.POLICIES[policy](**kw)
-            for pol in (self, self.port):
+            self.other = other_router.POLICIES[policy](**kw)
+            self.log = []
+            for pol in (self, self.other):
                 if isinstance(pol, (ref_router.ScoreDrivenRouter,
                                     port_router.ScoreDrivenRouter)):
                     pol.vectorized = vectorized
@@ -198,17 +210,19 @@ def shadowed(policy: str, vectorized: bool, budget_aware: bool = False,
             self._in_stages = False
 
         def _scores_agree(self, stream, nodes):
-            if isinstance(self, ref_router.ScoreDrivenRouter):
-                a = ref_cls.score_all(self, stream, nodes)
-                b = self.port.score_all(stream, nodes)
+            if isinstance(self, host_router.ScoreDrivenRouter):
+                a = host_cls.score_all(self, stream, nodes)
+                b = self.other.score_all(stream, nodes)
                 assert bits(a) == bits(b)
+                self.log.append(("scores", bits(a)))
                 self.checked["score_all"] += 1
 
         def place(self, stream, nodes):
             got = super().place(stream, nodes)
             if not self._in_stages:
                 self._scores_agree(stream, nodes)
-                assert self.port.place(stream, nodes) == got
+                assert self.other.place(stream, nodes) == got
+                self.log.append(("place", stream.sid, got))
                 self.checked["place"] += 1
             return got
 
@@ -219,19 +233,21 @@ def shadowed(policy: str, vectorized: bool, budget_aware: bool = False,
             finally:
                 self._in_stages = False
             self._scores_agree(stream, nodes)
-            assert self.port.place_stages(stream, nodes, transfer) == got
+            assert self.other.place_stages(stream, nodes, transfer) == got
+            self.log.append(("place_stages", stream.sid, got))
             self.checked["place_stages"] += 1
             return got
 
         def score_all(self, stream, nodes):
             got = super().score_all(stream, nodes)
-            assert bits(self.port.score_all(stream, nodes)) == bits(got)
+            assert bits(self.other.score_all(stream, nodes)) == bits(got)
             self.checked["score_all"] += 1
             return got
 
         def score(self, stream, node, best_iso):
             got = super().score(stream, node, best_iso)
-            assert bits(self.port.score(stream, node, best_iso)) == bits(got)
+            assert bits(self.other.score(stream, node, best_iso)) == bits(got)
+            self.log.append(("score", node.node_id, bits(got)))
             self.checked["score"] += 1
             return got
 
@@ -239,35 +255,37 @@ def shadowed(policy: str, vectorized: bool, budget_aware: bool = False,
                         transfer):
             got = super().stage_score(stream, k, node, best_iso,
                                       parent_nid, transfer)
-            assert bits(self.port.stage_score(
+            assert bits(self.other.stage_score(
                 stream, k, node, best_iso, parent_nid, transfer)) == bits(got)
+            self.log.append(("stage_score", k, node.node_id, bits(got)))
             self.checked["stage_score"] += 1
             return got
 
         def transfer_penalty(self, stream, k, transfer):
             got = super().transfer_penalty(stream, k, transfer)
-            assert bits(self.port.transfer_penalty(stream, k, transfer)) \
+            assert bits(self.other.transfer_penalty(stream, k, transfer)) \
                 == bits(got)
             self.checked["transfer_penalty"] += 1
             return got
 
-    if not hasattr(ref_cls, "on_window"):
+    if not hasattr(host_cls, "on_window"):
         return Shadow()
 
     class TunedShadow(Shadow):
         def on_window(self, window, rng):
             mine = copy.deepcopy(rng)
             got = super().on_window(window, rng)
-            assert self.port.on_window(window, mine) == got
+            assert self.other.on_window(window, mine) == got
             assert mine.bit_generator.state == rng.bit_generator.state
-            assert _probe_view(self.port) == _probe_view(self)
-            assert bits(self.port.multipliers) == bits(self.multipliers)
+            assert _probe_view(self.other) == _probe_view(self)
+            assert bits(self.other.multipliers) == bits(self.multipliers)
+            self.log.append(("on_window", got, self.weights))
             self.checked["on_window"] += 1
             return got
 
         def rearm(self):
             super().rearm()
-            self.port.rearm()
+            self.other.rearm()
             self.checked["rearm"] += 1
 
     return TunedShadow()
@@ -314,6 +332,26 @@ class ShadowTelemetry(RefFleetTelemetry):
         return got
 
 
+class PortShadowTelemetry(PortFleetTelemetry):
+    """The port's aggregator inside the port's fleet simulator, with the
+    reference's fed the same arguments and held equal field by field."""
+
+    def __init__(self, canonical):
+        super().__init__(canonical=canonical)
+        self.ref = RefFleetTelemetry(canonical=canonical)
+        self.compared = 0
+
+    def observe(self, t, nodes, migrations, xfer_energy_j, departures=0,
+                rejections=0, swaps=0):
+        got = super().observe(t, nodes, migrations, xfer_energy_j,
+                              departures, rejections, swaps)
+        assert_windows_equal(self.ref.observe(
+            t, nodes, migrations, xfer_energy_j, departures, rejections,
+            swaps), got)
+        self.compared += 1
+        return got
+
+
 #: small scenarios of tests/test_cluster.py and tests/test_tuner.py, with
 #: tune and rebalance ticks so that every router entry point is reached
 SCENARIOS = {
@@ -343,13 +381,25 @@ POLICY_NAMES = ("round_robin", "least_loaded", "score", "score_whole",
                 "tuned_score")
 
 
-def run_shadowed(scenario: str, policy: str, vectorized: bool, **kw):
+def run_shadowed(scenario: str, policy: str, vectorized: bool,
+                 host: str = "ref", **kw):
+    """One shadowed run in package ``host``'s fleet simulator. The port's
+    run takes the reference's scenario through its config, and its
+    transfer model likewise."""
     make, fkw = SCENARIOS[scenario]
-    pol = shadowed(policy, vectorized, **kw)
-    fs = FleetSimulator(make(), pol, **fkw)
-    fs.telemetry = ShadowTelemetry(fs.telemetry.canonical)
+    pol = shadowed(policy, vectorized, host=host, **kw)
+    scn, fkw = make(), dict(fkw)
+    sim, tel = FleetSimulator, ShadowTelemetry
+    if host == "port":
+        sim, tel = port_cluster.FleetSimulator, PortShadowTelemetry
+        scn = port_cluster.FleetScenario.from_config(scn.to_config())
+        if "transfer" in fkw:
+            fkw["transfer"] = port_cluster.TransferModel.from_config(
+                fkw["transfer"].to_config())
+    fs = sim(scn, pol, **fkw)
+    fs.telemetry = tel(fs.telemetry.canonical)
     if fs._slo_tel is not None:
-        fs._slo_tel = ShadowTelemetry(fs._slo_tel.canonical)
+        fs._slo_tel = tel(fs._slo_tel.canonical)
     result = fs.run()
     return fs, pol, result
 
@@ -370,10 +420,46 @@ def test_router_and_telemetry_shadow_the_reference_live(scenario, policy,
     if policy == "tuned_score":
         assert c["on_window"] == pol.windows_seen > 0
         assert c["rearm"] == pol.probe.retriggers > 0
-        assert _probe_view(pol.port) == _probe_view(pol)
+        assert _probe_view(pol.other) == _probe_view(pol)
     assert fs.telemetry.compared == len(fs.telemetry.windows) > 0
     if fs._slo_tel is not None:
         assert fs._slo_tel.compared > 0
+
+
+def _fleet_view(fs, r) -> dict:
+    return {"frames": r.frames, "uxcost": plain(r.uxcost),
+            "migrations": r.migrations, "weights": plain(r.weights),
+            "stream_node": dict(fs.stream_node),
+            "stage_node": dict(fs.stage_node)}
+
+
+@pytest.mark.parametrize("vectorized", [True, False],
+                         ids=["vectorized", "scalar"])
+@pytest.mark.parametrize("policy", POLICY_NAMES)
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_router_and_telemetry_shadow_in_the_port_simulator(
+        scenario, policy, vectorized):
+    """The shadowed runs inside the port's own fleet simulator, the
+    reference's router shadowing the port's: at every decision the same
+    node ids, scores and tuned weights as the run inside the reference's
+    simulator, and the same result."""
+    fs, pol, r = run_shadowed(scenario, policy, vectorized, host="port")
+    rfs, rpol, rr = run_shadowed(scenario, policy, vectorized)
+    assert isinstance(pol, port_router.RouterPolicy)
+    assert isinstance(fs.nodes[0], port_cluster.FleetNode)
+    c = pol.checked
+    assert c["place"] + c["place_stages"] > 0
+    if fs.split:
+        assert c["place_stages"] > 0
+    if policy in ("score", "tuned_score") and not vectorized:
+        assert c["score"] > 0 or c["stage_score"] > 0
+    if policy == "tuned_score":
+        assert c["on_window"] == pol.windows_seen > 0
+        assert _probe_view(pol.other) == _probe_view(pol)
+    assert fs.telemetry.compared == len(fs.telemetry.windows) > 0
+    assert pol.log == rpol.log and len(pol.log) > 0
+    assert c == rpol.checked
+    assert _fleet_view(fs, r) == _fleet_view(rfs, rr)
 
 
 def test_shadowed_tuner_commits_and_the_port_follows():
@@ -381,8 +467,8 @@ def test_shadowed_tuner_commits_and_the_port_follows():
     static weights; the port's commits at the same windows to the same
     weights (a run with no commit would test less)."""
     _, pol, r = run_shadowed("drift_commits", "tuned_score", True)
-    assert r.tuner_commits > 0 and pol.port.probe.commits == r.tuner_commits
-    assert pol.port.weights == tuple(r.weights) != \
+    assert r.tuner_commits > 0 and pol.other.probe.commits == r.tuner_commits
+    assert pol.other.weights == tuple(r.weights) != \
         tuple(port_router.STATIC_WEIGHTS)
 
 
@@ -390,10 +476,10 @@ def test_shadowed_tuner_commits_and_the_port_follows():
 def test_shadowed_tuner_margins_and_budget_aware(margin):
     fs, pol, _ = run_shadowed("slo_tiers", "tuned_score", True,
                               budget_aware=True, margin=margin)
-    assert pol.port.budget_aware and pol.checked["on_window"] > 0
+    assert pol.other.budget_aware and pol.checked["on_window"] > 0
     bfs = {sv.budget_factor for sv in fs.streams.values()}
     assert len(bfs) > 1                # the budgets really differ
-    assert _probe_view(pol.port) == _probe_view(pol)
+    assert _probe_view(pol.other) == _probe_view(pol)
 
 
 def test_tuner_metrics_hook_publishes_equal_samples():
@@ -402,7 +488,7 @@ def test_tuner_metrics_hook_publishes_equal_samples():
     router samples."""
     from repro_torch.obs import MetricsRegistry
     pol = shadowed("tuned_score", True, margin=0.0)
-    pol.port.metrics = MetricsRegistry()
+    pol.other.metrics = MetricsRegistry()
     make, fkw = SCENARIOS["drift_commits"]
     fs = FleetSimulator(make(), pol, **fkw, obs=True)
     fs.run()
@@ -410,7 +496,7 @@ def test_tuner_metrics_hook_publishes_equal_samples():
     ref_snap = {k: v for k, v in fs.obs.metrics.snapshot().items()
                 if k.startswith("router_")}
     assert set(ref_snap) == {"router_weight", "router_tune_commits_total"}
-    assert pol.port.metrics.snapshot() == ref_snap
+    assert pol.other.metrics.snapshot() == ref_snap
 
 
 def test_hindsight_cost_equal_past_the_overload_knee():

@@ -41,6 +41,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         "simulator", "scheduler", "baselines")} <= set(mods)
     assert {f"repro_torch.scenarios.{m}" for m in (
         "builder", "phases", "registry", "fuzzer")} <= set(mods)
+    assert {f"repro_torch.cluster.{m}" for m in (
+        "slo", "trace", "builder", "fleet")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -60,6 +62,18 @@ def test_no_source_imports_jax_or_repro():
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if FORBIDDEN.search(f.read_text())]
     assert offenders == []
+
+
+def test_cluster_exports_equal_the_reference():
+    """``repro_torch.cluster`` exports what ``repro.cluster`` does, and each
+    export resolves."""
+    import repro.cluster as ref_cluster
+    import repro_torch.cluster as port_cluster
+    assert port_cluster.__all__ == ref_cluster.__all__
+    for name in port_cluster.__all__:
+        obj = getattr(port_cluster, name)
+        if isinstance(obj, type) or callable(obj):
+            assert obj.__module__.startswith("repro_torch."), name
 
 
 def test_forbidden_pattern_catches_what_it_should():
