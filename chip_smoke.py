@@ -33,16 +33,24 @@ Phases, each of which raises (exit code != 0) on any failure:
 5. serving: the serve_rtmm workload through ``repro_torch.launch.serve`` and
    ``repro_torch.serving``, in bfloat16, with gemma2-2b at its published
    width (4 layers, and 2 for its supernet variant) and mamba2-130m whole,
-   both on 1024-token prompts, kws's frames arriving as a Poisson process.
-   Before the run, the full-width bfloat16 forwards of both are held, each
-   kernel call inside them and the logits, against the plain versions in
-   float32; after the run, the kernels' launch counters must match the
-   frames the engine ran. A second run, in a fresh engine, replays the head
-   arrivals the first run's queue emitted (recorded by ``TraceRecorder``,
-   written and read back as JSONL) through ``TraceReplayQueue``: each head
-   stream must emit the same frames at the same times;
-6. profile: one synchronised forward of context and of kws under
-   ``torch.profiler``, device time by kernel;
+   both on 1024-token prompts, kws's frames arriving as a Poisson process;
+   every served handle replays CUDA graphs (``repro_torch.graphs``, the
+   counterpart of the reference's ``jax.jit``). Before the run, the
+   full-width bfloat16 forwards of both are held, each kernel call inside
+   them (eagerly, where the taps see each call) and the logits, against the
+   plain versions in float32; after the run, the kernels' launch counters,
+   raised by each replay with the launches its capture recorded, must
+   match the frames the engine ran. A second run, in a fresh engine,
+   replays the head arrivals the first run's queue emitted (recorded by
+   ``TraceRecorder``, written and read back as JSONL) through
+   ``TraceReplayQueue``: each head stream must emit the same frames at the
+   same times;
+6. graphs (before phase 5's run): each served handle's graph, captured at
+   its calibrated shape (detector and verifier (1, 32), context, its
+   variant and kws (1, 1024)), must give logits equal to its eager
+   forward's bit for bit; the median wall of a synchronised call eager and
+   graphed, and one profiled call of each under ``torch.profiler`` (device
+   time by kernel, and busy over the median wall);
 7. decode: the decode-attention kernel against its plain version at the
    full-width GQA shapes (gemma2-2b, gemma-2b, qwen1.5-4b), in float32 and
    bfloat16 (each call on the kernel ``kernel_for`` names: "mma" for
@@ -56,15 +64,26 @@ Phases, each of which raises (exit code != 0) on any failure:
    logits against forward on the extended tokens, the launch counters
    against the calls the config makes, all on "mma"), and mamba2-130m
    whole, 1024 tokens and 32 steps (its SSD calls held likewise); prefill
-   ms and ms per decoded token; a profiled step of each must run
-   ``decode_mma_kernel`` once per attention layer by the profiler's kernel
-   names, and neither fp32 kernel, and a profiled prefill the wgmma flash
-   instance of its head dim once per attention layer; two threads, each on
-   its own CUDA stream, decode at once through the bf16 kernel at
-   gemma2-2b's global shape (several splits merged in the launch): every
-   output must equal the same call made in turn bit for bit (each stream
-   merges on its own tickets; the outputs that differ with one ticket
-   buffer shared by the two streams are counted and printed, not gated);
+   ms and ms per decoded token; each run again through
+   ``graphs.GraphedDecode`` (one CUDA graph of the step, replayed) from a
+   copy of the prefilled cache, fed the same tokens: the logits of every
+   step and the final cache must equal the eager run's bit for bit, and the
+   counters must add the capture's launches a replay; ms per token eager
+   and graphed, and device busy per step of each; a profiled step of each
+   (eager and graphed) must run ``decode_mma_kernel`` once per attention
+   layer by the profiler's kernel names, and neither fp32 kernel, and a
+   profiled prefill the wgmma flash instance of its head dim once per
+   attention layer; two threads, each on its own CUDA stream, decode at
+   once through the bf16 kernel at gemma2-2b's global shape (several splits
+   merged in the launch): every output must equal the same call made in
+   turn bit for bit (each stream merges on its own tickets; the outputs
+   that differ with one ticket buffer shared by the two streams are counted
+   and printed, not gated);
+7b. graphs on two streams: two graphed gemma2-2b decode steps (published
+   width cut to 4 layers, 5120-row caches), each captured on its own stream,
+   replayed by two threads at once behind a device sleep: every output must
+   equal the same step replayed in turn bit for bit (each graph's decode
+   calls merge on tickets its capture made);
 8. MoE: the grouped-matmul kernel against its plain version (the
    reference's cases, empty groups, one group of every row, groups ending
    mid-tile, and phi3.5-moe's and qwen3-moe's full-width prefill and decode
@@ -82,7 +101,11 @@ Phases, each of which raises (exit code != 0) on any failure:
    and float32 counted, the logits held on the tokens routed alike, the
    launch counters against (prefill + steps) x layers x 3, the prefill's on
    the wgmma kernel and the steps' on the split path, and a profiled step's
-   decode kernels by name as in phase 7;
+   decode kernels by name as in phase 7; each run's steps again through
+   ``GraphedDecode``, held and timed as in phase 7; each prefill's median
+   wall eager and captured in a graph, and a profile of each with the
+   device's time by kind of kernel (gmm, flash, cuBLAS, copies, sort,
+   elementwise) beside the wall;
 9. the remaining architectures: the decode kernel at phi-3-vision's head
    dim 96 and zamba2-2.7b's shared block's 160 (``DECODE_ARCH_CASES``) with
    phase 7's gates; then zamba2-2.7b (54 mamba blocks and 9 applications of
@@ -140,11 +163,15 @@ Phases, each of which raises (exit code != 0) on any failure:
    multipliers in [TUNE_LO, TUNE_HI], the obs export parses with
    ``serve_frames_total`` equal to the fleet's frames, and each node's
    last served frame of each model, re-run alone on the same handle and
-   tokens, passes the bf16 gate (bit-equality printed). It prints each
-   node's lat_table and report, each model's median served wall under two
-   threads beside its calibrated time alone and beside an epoch of the
-   node's streams served with no other worker running, and each epoch's
-   wall beside the nodes' summed busy seconds.
+   tokens, passes the bf16 gate (bit-equality printed). The handles replay
+   CUDA graphs, each node's captured on its own stream at registration:
+   one call of each model on each node's stream under ``torch.profiler``
+   must replay that graph (no new capture) and run each attention layer's
+   flash instance and each SSM layer's four SSD kernels once, by the
+   kernel names. It prints each node's lat_table and report, each model's
+   median served wall under two threads beside its calibrated time alone
+   and beside an epoch of the node's streams served with no other worker
+   running, and each epoch's wall beside the nodes' summed busy seconds.
 
 13. the scheduler's simulator, on the host (no CUDA): the port's
    ``repro_torch.core`` and ``repro_torch.scenarios`` as
@@ -188,7 +215,8 @@ The ``kernels`` line's launches add up each kernel's counted runs: flash
 over the two serving runs, the fleet's epochs and the counted prefills of
 phases 7-9, SSD over the serving runs, the fleet's epochs, the counted
 prefills and the restored prefills of phases 10 and 11, decode attention
-over the steps of phases 7-9, gmm over the MoE runs.
+over the eager and graphed steps of phases 7-9 (a graphed run's warm-up
+calls included), gmm over the MoE runs, eager and graphed.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -815,6 +843,7 @@ def serve(torch) -> tuple[dict, dict]:
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.convert import to_compute_dtype
+    from repro_torch.graphs import GraphedForward
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd as ssd_mod
     from repro_torch.launch.serve import build_handle
@@ -835,7 +864,8 @@ def serve(torch) -> tuple[dict, dict]:
         @torch.inference_mode()
         def fn(p, tokens):
             return M.forward(p, cfg, tokens)[0]
-        return ModelHandle(name=name, cfg=cfg, params=params, fn=fn)
+        return ModelHandle(name=name, cfg=cfg, params=params,
+                           fn=GraphedForward(fn))
 
     t0 = time.perf_counter()
     det = build_handle("gemma-2b", "detector", layers=2)
@@ -848,6 +878,10 @@ def serve(torch) -> tuple[dict, dict]:
     prompt = 1024
     # context past its 4096 window, so that the local layers' window binds
     check_served_forward(torch, [(ctx, 6144), (kws, prompt)])
+    # each handle's graph, captured here at its calibrated shape on this
+    # thread's stream, against its eager forward (phase 6)
+    graphed_forwards(torch, [(det, 32), (verif, 32), (ctx, prompt),
+                             (ctx_v1, prompt), (kws, prompt)])
 
     plain = {h.name: dataclasses.replace(h) for h in handles}
     # count the engine's calls of each model, to hold the kernels' launch
@@ -974,17 +1008,69 @@ def serve(torch) -> tuple[dict, dict]:
     for name in launches:
         launches[name] += replay_launches[name]
     del q, rq, served, last
-    profile(torch, [(ctx, prompt), (kws, prompt)])
     return launches, plain
 
 
-def profile(torch, cases) -> None:
-    """Where a served model's device time goes: one synchronised forward
-    under torch.profiler, device kernels by self time."""
-    for h, seq in cases:
-        tokens = torch.zeros((1, seq), dtype=torch.int32, device="cuda")
-        profile_fn(torch, f"{h.name} S={seq}",
-                   lambda: h.fn(h.params, tokens))
+#: synchronised calls timed on the host's clock for a median wall
+WALL_REPS = 10
+
+
+def wall_ms(torch, fn, reps: int = WALL_REPS) -> float:
+    """Median host ms of ``reps`` calls of ``fn``, each from an idle card to
+    ``torch.cuda.synchronize()`` (after one untimed call); every output is
+    dropped before the next call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def busy_ms(rows) -> float:
+    """Device ms of a profiled call: its kernels' summed self time."""
+    return sum(r[0] for r in rows) / 1e3
+
+
+def graphed_forwards(torch, cases) -> None:
+    """Phase 6: each served handle (``graphs.GraphedForward``) at its
+    calibrated shape ``(1, s)``: its graphed logits, captured by the first
+    call here on this thread's stream (the key the engine's calls replay),
+    must equal its eager forward's bit for bit. Then the median wall of a
+    synchronised call, eager and graphed, and one profiled call of each
+    (device time by kernel); the device-busy share is the profiled busy
+    time over the median wall."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for h, s in cases:
+        tokens = torch.randint(0, h.cfg.vocab_size, (1, s), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        eager = lambda: h.fn.eager(h.params, tokens)
+        graph = lambda: h.fn(h.params, tokens)
+        want = eager()
+        got = graph()
+        same = torch.equal(got, want)
+        log(f"[graphs] {h.name} ({h.cfg.name}, {h.cfg.num_layers} layers) "
+            f"S={s}: graphed logits {tuple(got.shape)} bit-equal to the "
+            f"eager forward: {same}; launches recorded by the capture "
+            f"{[g.launches for g in h.fn.graphs.values()]}")
+        if not same:
+            raise AssertionError(f"{h.name}: graphed logits differ from the "
+                                 f"eager forward (max abs "
+                                 f"{float((got - want).abs().max())})")
+        del want, got
+        ms = {"eager": wall_ms(torch, eager), "graphed": wall_ms(torch, graph)}
+        busy = {k: busy_ms(profile_fn(torch, f"{h.name} S={s} {k}", fn))
+                for k, fn in (("eager", eager), ("graphed", graph))}
+        log(f"[graphs] {h.name} S={s}: median wall of a synchronised call "
+            f"eager {ms['eager']} ms, graphed {ms['graphed']} ms "
+            f"(x{ms['eager'] / ms['graphed']:.2f}); device busy "
+            f"{busy['eager']} / {busy['graphed']} ms, busy share eager "
+            f"{busy['eager'] / ms['eager']:.3f}, graphed "
+            f"{busy['graphed'] / ms['graphed']:.3f}")
+        torch.cuda.empty_cache()
 
 
 def profile_fn(torch, label: str, fn) -> list:
@@ -1075,6 +1161,7 @@ def fleet_phase(torch, handles: dict, card: str) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd as ssd_mod
     from repro_torch.launch import serve_fleet as sf
+    from repro_torch.models import model as M
     from repro_torch.obs import Obs, load_jsonl, parse_prometheus, \
         validate_span
 
@@ -1253,6 +1340,32 @@ def fleet_phase(torch, handles: dict, card: str) -> dict:
             f"{err}, rel L2 {rel}, bit-equal "
             f"{bool(torch.equal(req.result, again))}")
     del run, again
+
+    # by the profiler's kernel names: one call of each model on each node's
+    # stream replays the graph its registration captured there, which runs
+    # each attention layer's flash instance and each SSM layer's four SSD
+    # kernels once
+    for node in nodes:
+        with torch.cuda.stream(node.cuda_stream):
+            for m in names:
+                h = handles[m]
+                s = shapes.get(m, (32,))[0]
+                tokens = torch.zeros((1, s), dtype=torch.int32, device="cuda")
+                captured = len(h.fn.graphs)
+                rows, _ = kernel_rows(torch, lambda: h.fn(h.params, tokens))
+                if len(h.fn.graphs) != captured:
+                    raise AssertionError(f"fleet {node.name} {m}: a call "
+                                         f"after registration captured again")
+                expect = expected_calls(torch, M, h.cfg, s)
+                heads = {}
+                for c in expect:
+                    if c[0] == "flash":
+                        heads[c[1][3]] = heads.get(c[1][3], 0) + 1
+                label = f"{node.name} {m} S={s} (graph replay)"
+                check_flash_launches(rows, heads, label, "fleet")
+                by_name = check_ssd_launches(
+                    rows, sum(c[0] == "ssd" for c in expect), label)
+                log(f"[fleet] {label}: ssd kernels by name {by_name}")
     log(f"[fleet] phase {time.perf_counter() - t0:.1f} s; {card}")
     return launches
 
@@ -1436,7 +1549,8 @@ def check_decode_models(torch) -> None:
             f"leaves: max_abs_err={err}")
 
 
-def check_flash_launches(rows, want: dict, label: str) -> None:
+def check_flash_launches(rows, want: dict, label: str,
+                         tag: str = "decode") -> None:
     """A profiled call (``rows`` from ``profile_fn``) must run the wgmma
     flash kernel's instance of each head dim as often as ``want`` says
     ({head_dim: launches}) and no float32 flash kernel, by the profiler's
@@ -1448,7 +1562,7 @@ def check_flash_launches(rows, want: dict, label: str) -> None:
             name = f"flash_{m.group(1)}_kernel<{m.group(2)}>"
             by_name[name] = by_name.get(name, 0) + count
     want = {f"flash_wgmma_kernel<{h}>": n for h, n in want.items()}
-    log(f"[decode] {label}: flash kernels by name in one profiled call "
+    log(f"[{tag}] {label}: flash kernels by name in one profiled call "
         f"{by_name}, expected {want}")
     if by_name != want:
         raise AssertionError(f"{label}: flash kernels {by_name}, expected "
@@ -1473,9 +1587,12 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
     (on the same bf16-valued weights) than twice the bf16 forward is. A
     profiled step must run the bf16 decode kernel once per attention layer
     and a profiled prefill the wgmma flash instance of its head dim once per
-    attention layer, by the profiler's kernel names. Returns the prefill
-    time, the step times and the launch counts of the run.
+    attention layer, by the profiler's kernel names. The steps run again
+    through ``GraphedDecode`` (``graphed_decode``), and a graphed step is
+    profiled too. Returns the prefill time, the median ms per token eager
+    and graphed, and the launch counts of both runs.
     """
+    from repro_torch import graphs
     from repro_torch.configs import get_config
     from repro_torch.convert import init_compute_params
     from repro_torch.kernels import decode_attention as dec
@@ -1535,6 +1652,7 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
             raise AssertionError(f"{arch} prefill: launches {launches}, "
                                  f"expected {want_l}")
         flash_by_kernel(fa, f"{arch} prefill of {prompt}")
+        cache0 = M.tree_map(torch.clone, cache)       # for the graphed run
         nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         del logits, pcalls
         fed, outs, step_ms = [], [], []
@@ -1582,6 +1700,10 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
             raise AssertionError(f"{arch}: {dec.launches} decode_attention "
                                  f"launches, expected {steps} steps x "
                                  f"{attn_layers} attention layers")
+        gstep, g_ms, g_launches = graphed_decode(
+            torch, f"{arch} decode", params, cfg, cache0, fed, outs, cache,
+            prompt, {"decode_attention": ("mma", attn_layers)})
+        launches["decode_attention"] += g_launches["decode_attention"]
         dec_logits = torch.cat(outs)                       # [steps, V]
         if not torch.isfinite(dec_logits).all():
             raise AssertionError(f"{arch}: non-finite decode logits")
@@ -1607,15 +1729,25 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
         raise AssertionError(f"{arch}: decoded logits off by {kern}, above "
                              f"{gate}")
     med = statistics.median(step_ms)
+    g_med = statistics.median(g_ms)
     log(f"[decode] {arch} bf16 ({cfg.num_layers} layers): prefill of {prompt} "
         f"tokens {prefill_ms} ms; median {med} ms per decoded token over "
-        f"{len(step_ms)} untapped steps (min {min(step_ms)}, max "
-        f"{max(step_ms)}); launches {launches} (decode_attention {steps} x "
-        f"{attn_layers})")
+        f"{len(step_ms)} untapped eager steps (min {min(step_ms)}, max "
+        f"{max(step_ms)}), graphed {g_med} over {len(g_ms)} replays (min "
+        f"{min(g_ms)}, max {max(g_ms)}); launches {launches} "
+        f"(decode_attention (2 x {steps} + {graphs.WARMUP_CALLS}) x "
+        f"{attn_layers}: eager and graphed steps, warm-up calls)")
     step = lambda: M.decode_step(params, cfg, nxt, cache, pos)
     rows = profile_fn(torch, f"{arch} decode_step at pos {prompt + steps - 1}",
                       step)
     check_decode_launches(rows, by_kernel, attn_layers, steps, arch)
+    g_rows = profile_fn(torch, f"{arch} graphed decode_step at pos "
+                        f"{prompt + steps - 1}", lambda: gstep(nxt, pos))
+    check_decode_launches(g_rows, by_kernel, attn_layers, steps,
+                          f"{arch} graphed")
+    log(f"[decode] {arch}: device busy a step {busy_ms(rows)} ms eager, "
+        f"{busy_ms(g_rows)} ms graphed; busy share of the median step eager "
+        f"{busy_ms(rows) / med:.3f}, graphed {busy_ms(g_rows) / g_med:.3f}")
     heads = {}
     for c in prefill_calls:
         if c[0] == "flash":
@@ -1629,9 +1761,65 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
     if ssd_calls:
         log(f"[decode] {arch} prefill: ssd kernels by name in one profiled "
             f"call {by_name}, {ssd_calls} of each expected")
-    del params, cache, dec_logits, fwd, want
+    del params, cache, cache0, gstep, dec_logits, fwd, want
     torch.cuda.empty_cache()
-    return dict(launches=launches, ms_per_token=med, prefill_ms=prefill_ms)
+    return dict(launches=launches, ms_per_token=med,
+                ms_per_token_graphed=g_med, prefill_ms=prefill_ms)
+
+
+def graphed_decode(torch, label: str, params, cfg, cache0, fed: list,
+                   want: list, cache, prompt: int, per_step: dict):
+    """``graphs.GraphedDecode`` over ``cache0`` (a copy of the cache as the
+    prefill left it), fed the eager run's tokens ``fed`` at the same
+    positions: every step's logits must equal the eager step's (``want``)
+    bit for bit, and the final cache the eager run's ``cache``. The
+    launches the run adds must be ``per_step`` ({binding: (kernel, launches
+    a step)}) times the steps and the warm-up calls before the capture,
+    through the replays' recorded deltas. Returns the step, its ms per step
+    on the host's clock (the first step, which captures, left out) and the
+    launches it added by binding."""
+    from repro_torch import graphs
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+
+    step = graphs.GraphedDecode(params, cfg, cache0)
+    before = build.counts()
+    ms = []
+    for i, (tok, w) in enumerate(zip(fed, want)):
+        pos = torch.full((1,), prompt + i, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = step(tok, pos)
+        torch.cuda.synchronize()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(logits.reshape(w.shape), w):
+            raise AssertionError(f"{label}: graphed step {i} differs from "
+                                 f"the eager step")
+    leaves = list(zip(M.tree_leaves(cache0), M.tree_leaves(cache)))
+    if not all(torch.equal(a, b) for a, b in leaves):
+        raise AssertionError(f"{label}: the graphed run's final cache "
+                             f"differs from the eager run's")
+    after = build.counts()
+    n = len(fed) + graphs.WARMUP_CALLS
+    added, want_added = {}, {}
+    for name, (total, by_kernel) in after.items():
+        added[name] = (total - before[name][0],
+                       {k: v - before[name][1][k]
+                        for k, v in by_kernel.items()})
+        kernel, per = per_step.get(name, (None, 0))
+        want_added[name] = (n * per, {k: n * per if k == kernel else 0
+                                      for k in by_kernel})
+    if len(step.graphs) != 1 or added != want_added:
+        raise AssertionError(f"{label}: graphed run captured "
+                             f"{len(step.graphs)} graphs, added launches "
+                             f"{added}, expected {want_added} ({len(fed)} "
+                             f"steps and {graphs.WARMUP_CALLS} warm-up calls)")
+    log(f"[graphs] {label}: {len(fed)} graphed steps bit-equal to the eager "
+        f"steps, logits of every step and {len(leaves)} cache leaves; "
+        f"launches {added} = ({len(fed)} replays + {graphs.WARMUP_CALLS} "
+        f"warm-up calls) x {per_step}")
+    return step, ms, {name: a[0] for name, a in added.items()}
 
 
 #: the decode runs at full width: (arch, prompt, decode steps, cache rows,
@@ -1725,15 +1913,110 @@ def check_decode_two_streams(torch, gen) -> None:
         f"{2 * TWO_STREAM_REPS} outputs differed (not gated)")
 
 
+#: the two-stream graphed decode: gemma2-2b at its published width cut to 4
+#: layers (two local, two global), caches of 5120 rows, each stream's step
+#: at one of ``pos``, and the replays each stream queues
+GRAPH_TWO_STREAM = dict(arch="gemma2-2b", layers=4, rows=5120,
+                        pos=(4640, 4100), reps=30)
+
+
+def check_graphed_decode_two_streams(torch) -> None:
+    """Two ``GraphedDecode``s of gemma2-2b (one model, two caches of random
+    rows), each captured on its own stream, then replayed by two threads
+    at once, each on its stream behind a device sleep so that the two
+    graphs' kernels run side by side: every output must equal the same step
+    replayed in turn, bit for bit. A step writes the same token at the same
+    position each time, so every replay of one graph gives the same logits;
+    the global layers merge several splits on tickets, which each graph's
+    capture made for itself. The counters must add one decode launch a
+    layer a replay."""
+    from concurrent.futures import ThreadPoolExecutor
+    import threading
+    from repro_torch import graphs
+    from repro_torch.configs import get_config
+    from repro_torch.convert import init_compute_params
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.models import model as M
+
+    c = GRAPH_TWO_STREAM
+    cfg = dataclasses.replace(get_config(c["arch"]), num_layers=c["layers"])
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = init_compute_params(gen, cfg, "cuda", torch.bfloat16)
+    splits = dec.num_splits(1, cfg.num_kv_heads, c["rows"], None,
+                            cfg.num_heads // cfg.num_kv_heads, cfg.head_dim)
+    if splits < 2:
+        raise AssertionError(f"graphed two streams: {splits} split")
+    streams = [torch.cuda.Stream() for _ in c["pos"]]
+    steps, args, want = [], [], []
+    with torch.inference_mode():
+        for i, p in enumerate(c["pos"]):
+            cache = M.tree_map(
+                lambda t: torch.randn(t.shape, generator=gen,
+                                      device="cuda").to(t.dtype),
+                M.init_cache(cfg, 1, c["rows"], torch.bfloat16, "cuda"))
+            steps.append(graphs.GraphedDecode(params, cfg, cache))
+            args.append((torch.randint(0, cfg.vocab_size, (1, 1),
+                                       generator=gen, device="cuda",
+                                       dtype=torch.int32),
+                         torch.tensor([p], dtype=torch.int32,
+                                      device="cuda")))
+        for i, st in enumerate(streams):         # capture, then in turn
+            with torch.cuda.stream(st):
+                steps[i](*args[i])
+                want.append(steps[i](*args[i])[0])
+                st.synchronize()
+    if torch.equal(want[0], want[1]):
+        raise AssertionError("graphed two streams: the two steps give one "
+                             "output")
+    reps = c["reps"]
+    start = threading.Barrier(2, timeout=60)
+
+    def work(i):
+        with torch.cuda.stream(streams[i]):
+            start.wait()
+            torch.cuda._sleep(TWO_STREAM_SLEEP)
+            outs = [steps[i](*args[i])[0] for _ in range(reps)]
+            streams[i].synchronize()
+        return outs
+
+    before = build.counts()["decode_attention"][0]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        got = list(pool.map(work, range(2), timeout=300))
+    wall = time.perf_counter() - t0
+    added = build.counts()["decode_attention"][0] - before
+    bad = sum(not torch.equal(o, want[i])
+              for i, outs in enumerate(got) for o in outs)
+    log(f"[graphs] two streams: {c['arch']} ({c['layers']} layers, "
+        f"{c['rows']}-row caches, pos {c['pos']}; global layers {splits} "
+        f"splits) graphed decode steps, {reps} replays queued behind a "
+        f"device sleep on each of two threads and streams at once, "
+        f"{wall:.3f} s: {2 * reps - bad} of {2 * reps} outputs equal the "
+        f"replays in turn bit for bit; decode launches added {added}")
+    if bad:
+        raise AssertionError(f"graphed two streams: {bad} of {2 * reps} "
+                             f"outputs differ from the replays in turn")
+    if any(len(st.graphs) != 1 for st in steps):
+        raise AssertionError("graphed two streams: a replay captured again")
+    if added != 2 * reps * cfg.num_layers:
+        raise AssertionError(f"graphed two streams: {added} decode launches "
+                             f"added, expected {2 * reps * cfg.num_layers}")
+    del steps, params, got, want
+    torch.cuda.empty_cache()
+
+
 def decode(torch, gen):
     headline = check_decode_kernel(torch, gen)
     check_decode_two_streams(torch, gen)
+    check_graphed_decode_two_streams(torch)
     check_decode_models(torch)
     runs = {arch: decode_full_width(torch, arch, prompt=prompt, steps=steps,
                                     max_seq=max_seq, seed=seed)
             for arch, prompt, steps, max_seq, seed in DECODE_FULL_WIDTH}
-    log("[decode] median ms per decoded token: " + ", ".join(
-        f"{arch} {r['ms_per_token']}" for arch, r in runs.items()))
+    log("[decode] median ms per decoded token, eager / graphed: " + ", ".join(
+        f"{arch} {r['ms_per_token']} / {r['ms_per_token_graphed']}"
+        for arch, r in runs.items()))
     return headline, sum_launches(runs.values())
 
 
@@ -2040,7 +2323,9 @@ def moe_full_width(torch, arch: str, layers: int, prompt: int, steps: int,
     the flipped (token, choice) pairs are counted and the logits (prefill
     and decoded) are held, on the tokens routed alike at every layer, to no
     more than twice the plain bf16 forward's distance from float32. The
-    launch counters are read over the tapped prefill and the steps.
+    launch counters are read over the tapped prefill and the steps. The
+    steps run again through ``GraphedDecode`` (``graphed_decode``), and the
+    prefill is profiled eager and graphed (``prefill_profile``).
     """
     from repro_torch.configs import get_config
     from repro_torch.convert import to_compute_dtype
@@ -2110,6 +2395,7 @@ def moe_full_width(torch, arch: str, layers: int, prompt: int, steps: int,
         finally:
             ops.gmm, moe.route = real_gmm, real_route
         check_calls(f"prefill of {prompt}", prompt)
+        cache0 = M.tree_map(torch.clone, cache)       # for the graphed run
         kern_routes = [[r] for r in routes]
         outs = [plog[0].clone()]
         nxt = plog[:, -1].argmax(-1).to(torch.int32)[:, None]
@@ -2153,6 +2439,10 @@ def moe_full_width(torch, arch: str, layers: int, prompt: int, steps: int,
             raise AssertionError(f"{arch}: launches {launches}, expected "
                                  f"{want_l} ((prefill + {steps} steps) x "
                                  f"{layers} layers x 3 for gmm)")
+        gstep, g_ms, g_launches = graphed_decode(
+            torch, f"{arch} decode", params, cfg, cache0, fed, outs[1:],
+            cache, prompt, {"decode_attention": ("mma", layers),
+                            "gmm": ("wgmma_splitk", 3 * layers)})
         got = torch.cat(outs)                               # [prompt+steps, V]
         if not torch.isfinite(got).all():
             raise AssertionError(f"{arch}: non-finite logits")
@@ -2197,16 +2487,76 @@ def moe_full_width(torch, arch: str, layers: int, prompt: int, steps: int,
     if not kern <= gate:
         raise AssertionError(f"{arch}: logits off by {kern}, above {gate}")
     med = statistics.median(step_ms)
+    g_med = statistics.median(g_ms)
     log(f"[moe] {arch} bf16: prefill of {prompt} tokens {prefill_ms} ms; "
         f"median {med} ms per decoded token over {len(step_ms)} untapped "
-        f"steps (min {min(step_ms)}, max {max(step_ms)}); launches {launches}")
+        f"eager steps (min {min(step_ms)}, max {max(step_ms)}), graphed "
+        f"{g_med} over {len(g_ms)} replays (min {min(g_ms)}, max "
+        f"{max(g_ms)}); launches {launches}, the graphed run's {g_launches}")
+    for name in ("decode_attention", "gmm"):
+        launches[name] += g_launches[name]
     step = lambda: M.decode_step(params, cfg, nxt, cache, pos)
     rows = profile_fn(torch, f"{arch} decode_step at pos {prompt + steps - 1}",
                       step)
     check_decode_launches(rows, dec_by_kernel, layers, steps, arch)
-    del params, cache, got, want, plain
+    g_rows = profile_fn(torch, f"{arch} graphed decode_step at pos "
+                        f"{prompt + steps - 1}", lambda: gstep(nxt, pos))
+    check_decode_launches(g_rows, dec_by_kernel, layers, steps,
+                          f"{arch} graphed")
+    log(f"[moe] {arch}: device busy a step {busy_ms(rows)} ms eager, "
+        f"{busy_ms(g_rows)} ms graphed; busy share of the median step eager "
+        f"{busy_ms(rows) / med:.3f}, graphed {busy_ms(g_rows) / g_med:.3f}")
+    prefill_profile(torch, arch, params, cfg, tokens, cache)
+    del params, cache, cache0, gstep, got, want, plain
     torch.cuda.empty_cache()
     return launches
+
+
+#: kernel-name fragments of each kind of device work, for a profile's
+#: breakdown (the first that matches names the kind; the rest is
+#: elementwise and reduction work)
+KERNEL_KINDS = (
+    ("gmm", ("gmm_",)), ("flash", ("flash_",)), ("decode attention",
+                                                ("decode_",)),
+    ("ssd", ("ssd_",)),
+    ("cuBLAS GEMM", ("nvjet", "gemm", "gemv", "xmma", "cutlass")),
+    ("copies and indexing", ("copy", "Memcpy", "Memset", "index", "gather",
+                             "scatter", "cat_", "CatArray")),
+    ("sort", ("sort", "Sort", "radix", "Radix")),
+)
+
+
+def kernel_kinds(rows) -> dict:
+    """Device ms of a profile's kernels by ``KERNEL_KINDS``."""
+    out = dict.fromkeys([k for k, _ in KERNEL_KINDS] + ["elementwise"], 0.0)
+    for us, _, key in rows:
+        kind = next((k for k, frags in KERNEL_KINDS
+                     if any(f in key for f in frags)), "elementwise")
+        out[kind] += us / 1e3
+    return out
+
+
+def prefill_profile(torch, arch: str, params, cfg, tokens, cache) -> None:
+    """Where a prefill's time goes: its median wall eager and graphed (the
+    prefill captured into a CUDA graph over ``cache``), one profiled call
+    of each, device ms by kind of kernel, and the share of the wall the
+    device is busy. The host's share is the rest."""
+    from repro_torch import graphs
+    from repro_torch.models import model as M
+    eager = lambda: M.prefill(params, cfg, tokens, cache)[0]
+    graph = graphs.GraphedForward(lambda p, t: M.prefill(p, cfg, t, cache)[0])
+    with torch.inference_mode():
+        for name, fn in (("eager", eager),
+                         ("graphed", lambda: graph(params, tokens))):
+            ms = wall_ms(torch, fn)
+            rows = profile_fn(torch, f"{arch} prefill of "
+                              f"{tokens.shape[1]} {name}", fn)
+            kinds = {k: round(v, 4) for k, v in kernel_kinds(rows).items()}
+            log(f"[moe] {arch} prefill of {tokens.shape[1]} {name}: median "
+                f"wall {ms} ms, device busy {busy_ms(rows)} ms (share "
+                f"{busy_ms(rows) / ms:.3f}); device ms by kind {kinds}")
+    del graph
+    torch.cuda.empty_cache()
 
 
 #: the MoE runs at full width: (arch, layers, prompt, decode steps, cache
@@ -2255,7 +2605,8 @@ def kernel_modules() -> dict:
 
 
 def kernel_counts() -> dict:
-    return {name: mod.launches for name, mod in kernel_modules().items()}
+    from repro_torch.kernels import build
+    return {name: n for name, (n, _) in build.counts().items()}
 
 
 def reset_kernel_counters() -> None:

@@ -11,7 +11,10 @@ architectures, depths, prompts, cache rows and seeds as ``chip_smoke.py``'s
 phases 7 and 8; bf16, random weights from the seed): ``prefill`` of the
 prompt, one untimed step, then ``STEPS`` greedy ``decode_step``s, each timed
 on the host's clock between two synchronisations, as ``chip_smoke.py`` times
-them; prints the median, min and max ms per decoded token. Then, at each
+them; prints the median, min and max ms per decoded token. Each run has two
+arms on the same prompt: eager, and through ``repro_torch.graphs``'s
+``GraphedDecode`` (the untimed step captures the graph), where the checkout
+has that module. Then, at each
 decode case of ``GMM_FULL_WIDTH``, and at gemma2-2b's global layer of
 ``DECODE_KERNEL_CASES`` (bf16), the median over ``ENQUEUE_REPS`` calls of the
 host time that ``ops.gmm`` or ``ops.decode_attention`` takes to return, each
@@ -27,6 +30,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
+import importlib.util
 import statistics
 import sys
 import time
@@ -41,24 +46,27 @@ STEPS = 31           # timed decode steps, after one untimed (the caches
 ENQUEUE_REPS = 200   # timed gmm or decode-attention calls a case
 
 
-def step_times(torch, M, params, cfg, prompt: int, max_seq: int,
-               gen) -> list[float]:
-    """ms of each of ``STEPS`` greedy decode steps after a prefill."""
-    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
-                           device="cuda", dtype=torch.int32)
+def step_times(torch, M, params, cfg, tokens, max_seq: int,
+               graphs=None) -> list[float]:
+    """ms of each of ``STEPS`` greedy decode steps after a prefill of
+    ``tokens``, eager or, given the ``graphs`` module, replayed from a
+    ``GraphedDecode``."""
+    prompt = tokens.shape[1]
     times = []
     with torch.inference_mode():
         cache = M.init_cache(cfg, 1, max_seq, torch.bfloat16, "cuda")
         logits, cache = M.prefill(params, cfg, tokens, cache)
+        step = (graphs.GraphedDecode(params, cfg, cache) if graphs else
+                lambda t, p: M.decode_step(params, cfg, t, cache, p))
         nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         for i in range(STEPS + 1):
             pos = torch.full((1,), prompt + i, dtype=torch.int32,
                              device="cuda")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, cache = M.decode_step(params, cfg, nxt, cache, pos)
+            logits, _ = step(nxt, pos)
             torch.cuda.synchronize()
-            if i:                                  # the first step warms up
+            if i:              # the first step warms up (or captures)
                 times.append((time.perf_counter() - t0) * 1e3)
             nxt = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
     return times
@@ -92,6 +100,8 @@ def main() -> int:
     from repro_torch.convert import to_compute_dtype
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
+    graphs = (importlib.import_module("repro_torch.graphs")
+              if importlib.util.find_spec("repro_torch.graphs") else None)
 
     cs.log(f"[time_decode] {cs.gpu_name_and_power()}; repro_torch from "
            f"{Path(ops.__file__).resolve().parents[1]}")
@@ -110,10 +120,19 @@ def main() -> int:
         params = to_compute_dtype(M.init_params(gen, cfg, "cuda"),
                                   M.compute_dtype(cfg))
         torch.cuda.empty_cache()
-        ms = step_times(torch, M, params, cfg, prompt, max_seq, gen)
-        cs.log(f"[time_decode] {arch} ({cfg.num_layers} layers) prompt "
-               f"{prompt}: median {statistics.median(ms)} ms per decoded "
-               f"token over {len(ms)} steps (min {min(ms)}, max {max(ms)})")
+        tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        for arm in ("eager", "graphed"):
+            if arm == "graphed" and graphs is None:
+                cs.log(f"[time_decode] {arch}: graphed arm not run (the "
+                       f"checkout has no repro_torch.graphs)")
+                continue
+            ms = step_times(torch, M, params, cfg, tokens, max_seq,
+                            graphs if arm == "graphed" else None)
+            cs.log(f"[time_decode] {arch} ({cfg.num_layers} layers) prompt "
+                   f"{prompt} {arm}: median {statistics.median(ms)} ms per "
+                   f"decoded token over {len(ms)} steps (min {min(ms)}, max "
+                   f"{max(ms)})")
         del params
         torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)

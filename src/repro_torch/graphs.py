@@ -1,0 +1,192 @@
+"""CUDA graphs for the served forward and ``decode_step``: the port's
+counterpart of ``jax.jit`` on the serving path.
+
+The JAX package compiles the step it serves: ``repro/launch/serve.py``
+wraps each model's logits function in ``jax.jit``, and the engine runs each
+frame as one compiled program at the shape it was calibrated on. Run
+eagerly, every kernel of a forward or decode step is a launch dispatched
+from Python, and the host, not the card, bounds the served latency. Here
+the same function is captured once per key into a ``torch.cuda.CUDAGraph``
+and replayed.
+
+* ``GraphedForward(fn)``: ``fn(params, tokens) -> logits``, one graph per
+  calling stream, tokens shape and dtype, and the ``data_ptr``s of the
+  params leaves. As under ``jax.jit``, a new shape or new params capture again;
+  nothing is captured silently later than the first call with a key, so an
+  engine whose untimed calibration call made the capture times replays.
+* ``GraphedDecode``: ``models.model.decode_step`` over one cache, one graph
+  per calling stream and batch. The step takes ``pos`` on the device, writes
+  the cache in place and sizes every kernel from the shapes alone, so one
+  graph serves every position.
+
+Common to both:
+
+* a graph is captured on a stream of its own, after ``WARMUP_CALLS`` eager
+  calls there, so that what the first call makes lazily (the kernels
+  library, each kernel's shared-memory attribute, cuBLAS's workspace for the
+  stream) exists before the capture; it is replayed on the caller's current
+  stream. Each graph has its own memory pool and static inputs, so graphs
+  replayed at once on two streams share no buffer (decode attention's merge
+  counters included: a captured call takes them from its graph's pool);
+* a call copies its inputs into the graph's static inputs, replays, and
+  returns a fresh clone of the static output, as ``jax.jit`` returns new
+  arrays: an engine keeps every frame's result, which the next replay would
+  otherwise overwrite;
+* the capture's kernel calls are recorded, not counted
+  (``kernels.build.recording``); each replay adds them to the bindings'
+  launch counters (``kernels.build.add_counts``);
+* on the CPU, which only a caller that asks for it gets, the eager function
+  runs unchanged. On CUDA a capture or replay that fails raises: nothing
+  falls back to the eager function.
+
+Captures are serialised by one lock, and ``torch.cuda.graph`` synchronises
+the device before each: capture at set-up (``ServingEngine.register``'s
+untimed call), not while other threads serve.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from .configs import ArchConfig
+from .kernels import build
+from .models import model as M
+
+Tensor = torch.Tensor
+
+#: eager calls on the capture stream before a capture
+WARMUP_CALLS = 2
+
+_capture_lock = threading.Lock()
+
+
+def _ptrs(tree) -> tuple[int, ...]:
+    return tuple(t.data_ptr() for t in M.tree_leaves(tree))
+
+
+@dataclass
+class Graph:
+    """One captured call: its graph, static inputs and output, and the
+    kernel launches its capture recorded ({binding: (launches, {kernel:
+    launches})})."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple[Tensor, ...]
+    output: Tensor
+    launches: dict
+
+    def replay(self, *args: Tensor) -> Tensor:
+        """Copy ``args`` into the static inputs and replay on the current
+        stream; a fresh copy of the output."""
+        for static, a in zip(self.inputs, args):
+            static.copy_(a)
+        self.graph.replay()
+        build.add_counts(self.launches)
+        return self.output.clone()
+
+
+def capture(run: Callable[..., Tensor], inputs: tuple[Tensor, ...],
+            warm: Optional[Callable[..., Tensor]] = None) -> Graph:
+    """Capture ``run(*static)`` on static copies of ``inputs``, made on the
+    caller's current stream, after ``WARMUP_CALLS`` calls of ``warm`` (by
+    default ``run``) on them on a stream of the capture's own. Raises if
+    the capture fails; the caller's current stream is current again
+    afterwards either way."""
+    device = inputs[0].device
+    caller = torch.cuda.current_stream(device)
+    static = tuple(t.clone() for t in inputs)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(caller)
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP_CALLS):
+            (warm or run)(*static)
+    g = torch.cuda.CUDAGraph()
+    try:
+        with build.recording() as launches:
+            with torch.cuda.graph(g, stream=side,
+                                  capture_error_mode="thread_local"):
+                out = run(*static)
+    finally:
+        # a capture that fails inside ``torch.cuda.graph`` leaves its
+        # stream current
+        torch.cuda.set_stream(caller)
+    caller.wait_stream(side)
+    return Graph(g, static, out, dict(launches))
+
+
+class GraphedForward:
+    """``fn(params, tokens) -> logits`` replayed from CUDA graphs on CUDA
+    tokens, the counterpart of ``jax.jit(fn)`` (see the module docstring);
+    ``eager`` is ``fn`` itself, and ``graphs`` holds one ``Graph`` per
+    key."""
+
+    def __init__(self, fn: Callable[[dict, Tensor], Tensor]):
+        self.eager = fn
+        self.graphs: dict[tuple, Graph] = {}
+
+    def __call__(self, params: dict, tokens: Tensor) -> Tensor:
+        if tokens.device.type != "cuda":
+            return self.eager(params, tokens)
+        stream = torch.cuda.current_stream(tokens.device)
+        key = (tokens.device.index, stream.cuda_stream, tuple(tokens.shape),
+               tokens.dtype, _ptrs(params))
+        with torch.inference_mode():
+            g = self.graphs.get(key)
+            if g is None:
+                with _capture_lock:
+                    g = self.graphs.get(key)
+                    if g is None:
+                        g = capture(lambda t: self.eager(params, t), (tokens,))
+                        self.graphs[key] = g
+            return g.replay(tokens)
+
+
+class GraphedDecode:
+    """``decode_step(params, cfg, tokens, cache, pos)`` over one cache,
+    replayed from CUDA graphs when the tokens lie on CUDA.
+
+    A call takes ``tokens`` [B, 1] and ``pos`` [B] (int) and returns
+    ``(logits [B, 1, V], cache)`` as ``decode_step`` does: the logits a
+    fresh tensor, the cache advanced in place. The graph of a (stream, batch)
+    pair is captured at its first call, after warm-up steps on a zeroed
+    scratch cache of the same shapes (a warm-up on the real cache would
+    advance an SSM state twice).
+
+    The graphs bake in the addresses of ``params`` and of every cache leaf:
+    neither may be reallocated after the first call (assign into the leaves
+    in place, ``copy_``), and a call raises if a leaf's ``data_ptr`` moved.
+    """
+
+    def __init__(self, params: dict, cfg: ArchConfig, cache: dict):
+        self.params, self.cfg, self.cache = params, cfg, cache
+        self._ptrs = _ptrs(params) + _ptrs(cache)
+        self.graphs: dict[tuple, Graph] = {}
+
+    def _step(self, tokens: Tensor, pos: Tensor, cache: dict) -> Tensor:
+        return M.decode_step(self.params, self.cfg, tokens, cache, pos)[0]
+
+    def __call__(self, tokens: Tensor, pos: Tensor) -> tuple[Tensor, dict]:
+        if _ptrs(self.params) + _ptrs(self.cache) != self._ptrs:
+            raise RuntimeError("GraphedDecode: a params or cache leaf was "
+                               "reallocated; its graphs hold the old "
+                               "addresses (write the cache in place)")
+        with torch.inference_mode():
+            if tokens.device.type != "cuda":
+                return self._step(tokens, pos, self.cache), self.cache
+            stream = torch.cuda.current_stream(tokens.device)
+            key = (tokens.device.index, stream.cuda_stream,
+                   tuple(tokens.shape), tokens.dtype, tuple(pos.shape))
+            g = self.graphs.get(key)
+            if g is None:
+                with _capture_lock:
+                    scratch = M.tree_map(torch.zeros_like, self.cache)
+                    g = capture(
+                        lambda t, p: self._step(t, p, self.cache),
+                        (tokens, pos.to(tokens.device, torch.int32)),
+                        warm=lambda t, p: self._step(t, p, scratch))
+                    del scratch
+                    self.graphs[key] = g
+            return g.replay(tokens, pos), self.cache

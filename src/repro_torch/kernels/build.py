@@ -10,11 +10,13 @@ built. Any failure raises: there is no fallback.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -36,6 +38,69 @@ counter_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
+#: the binding modules whose launch counters ``counts`` reads, by name
+BINDINGS = ("flash_attention", "ssd", "decode_attention", "gmm")
+#: per thread: the launches recorded into the CUDA graph being captured
+_recording = threading.local()
+
+
+def _binding(name: str):
+    return sys.modules[f"{__package__}.{name}"]
+
+
+def count(name: str, kernel: str | None) -> None:
+    """One launch of binding ``name`` (its kernel ``kernel``; None for a
+    binding that counts calls only), called by the binding where it launches.
+    Under ``counter_lock``: engines on several threads launch through one
+    binding. On a thread inside ``recording`` it goes to the recorded delta
+    instead: a call captured into a CUDA graph launches nothing until the
+    graph is replayed (``add_counts``)."""
+    delta = getattr(_recording, "delta", None)
+    if delta is not None:
+        n, by_kernel = delta.get(name, (0, {}))
+        if kernel is not None:
+            by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+        delta[name] = (n + 1, by_kernel)
+        return
+    mod = _binding(name)
+    with counter_lock:
+        mod.launches += 1
+        if kernel is not None:
+            mod.kernel_launches[kernel] += 1
+
+
+def counts() -> dict[str, tuple[int, dict[str, int]]]:
+    """A snapshot of every binding's ``launches`` and ``kernel_launches``
+    (empty for SSD, which counts calls only), by binding name."""
+    with counter_lock:
+        return {name: (_binding(name).launches,
+                       dict(getattr(_binding(name), "kernel_launches", {})))
+                for name in BINDINGS}
+
+
+def add_counts(delta: dict[str, tuple[int, dict[str, int]]]) -> None:
+    """Add a recorded delta (``recording``) to the bindings' counters, under
+    ``counter_lock``: what one replay of a captured graph launches."""
+    with counter_lock:
+        for name, (n, by_kernel) in delta.items():
+            mod = _binding(name)
+            mod.launches += n
+            for kernel, k in by_kernel.items():
+                mod.kernel_launches[kernel] += k
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside, the launches counted on this thread go to the yielded delta
+    ({binding: (launches, {kernel: launches})}), not to the counters: a
+    CUDA graph's capture records its launches, each replay adds them."""
+    if getattr(_recording, "delta", None) is not None:
+        raise RuntimeError("already recording launches on this thread")
+    _recording.delta = {}
+    try:
+        yield _recording.delta
+    finally:
+        _recording.delta = None
 
 
 def _nvcc() -> str:

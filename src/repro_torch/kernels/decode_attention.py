@@ -15,15 +15,15 @@ The binding never copies the cache: a per-layer slice ``cache["k"][g]`` of a
 contiguous stacked cache is itself contiguous and aligned, and anything else
 is refused rather than cloned (a clone would read and write the whole cache
 on every decoded token). A bf16 call does no host work that depends on
-``pos`` and no memset: its merge counters live in a zeroed buffer that the
-binding keeps per device and that every call leaves at zero, so the call can
-be captured in a CUDA graph. The first call on a device, or with more
-sequences x KV heads than before, allocates them: make it before capturing.
-Calls on one device share the counters, so they must not run concurrently
-on two streams. The fleet-serving path (``launch.serve_fleet``), which runs
-engines on one stream each, calls only forwards (flash attention, SSD) and
-never reaches this buffer; a decode path on several streams must first give
-each stream its own buffer.
+``pos``: its merge counters live in a zeroed buffer that every call leaves
+at zero. Eager calls take the buffer the binding keeps per (device, CUDA
+stream), made (or grown) at a stream's first call, so that calls on two
+streams at once never count into each other's counters. A call captured
+into a CUDA graph takes a buffer of its own, made inside the capture from
+the graph's private pool (one small zeroing node a replay) and never kept
+for eager calls: a graph replays on whatever stream its caller names, so a
+buffer keyed by the capture stream could be shared by two graphs replayed
+at once.
 """
 from __future__ import annotations
 
@@ -71,14 +71,14 @@ kernel_launches = {"mma": 0, "fp32": 0}
 
 
 def _count(kernel: str) -> None:
-    """One launch of ``kernel``, counted under ``build.counter_lock``."""
-    global launches
-    with build.counter_lock:
-        launches += 1
-        kernel_launches[kernel] += 1
-#: per (device index, CUDA stream): the mma kernel's merge counters, int32,
-#: zero between calls. A buffer is only ever used on its own stream, so two
-#: decodes on two streams at once never count into each other's tickets
+    """One launch of ``kernel`` (``build.count``)."""
+    build.count("decode_attention", kernel)
+
+
+#: per (device index, CUDA stream): the eager mma kernel's merge counters,
+#: int32, zero between calls. A buffer is only ever used on its own stream,
+#: so two decodes on two streams at once never count into each other's
+#: tickets
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
@@ -131,7 +131,10 @@ def num_splits(b: int, kv: int, s: int, window: Optional[int],
 
 def _tickets_for(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` zeroed merge counters for the current stream of
-    ``device``, made (on that stream) the first time the stream asks."""
+    ``device``, made (on that stream) the first time the stream asks; under
+    a CUDA graph capture, ``n`` of the graph's own."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(n, dtype=torch.int32, device=device)
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     t = _tickets.get(key)
     if t is None or t.numel() < n:

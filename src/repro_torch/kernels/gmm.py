@@ -37,11 +37,8 @@ kernel_launches = {"wgmma": 0, "wgmma_splitk": 0, "fp32": 0}
 
 
 def _count(kernel: str) -> None:
-    """One launch of ``kernel``, counted under ``build.counter_lock``."""
-    global launches
-    with build.counter_lock:
-        launches += 1
-        kernel_launches[kernel] += 1
+    """One launch of ``kernel`` (``build.count``)."""
+    build.count("gmm", kernel)
 
 
 def kernel_for(dtype: torch.dtype, t: int) -> str:

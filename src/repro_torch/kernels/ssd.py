@@ -24,10 +24,8 @@ launches = 0
 
 
 def _count() -> None:
-    """One call's launches, counted under ``build.counter_lock``."""
-    global launches
-    with build.counter_lock:
-        launches += 1
+    """One call's launches (``build.count``)."""
+    build.count("ssd", None)
 
 
 def ssd(

@@ -4,7 +4,8 @@
 Registers a set of reduced-config models as concurrent FPS streams (with a
 cascade dependency and Supernet variants), builds heterogeneous virtual
 accelerator slices, and runs the DREAM-dispatch engine in real time on the
-GPU, with the attention and SSD layers in the hand-written CUDA kernels.
+GPU, with the attention and SSD layers in the hand-written CUDA kernels and
+each model's forward replayed from CUDA graphs.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --duration 10
 """
@@ -19,6 +20,7 @@ import torch
 from .. import resolve_device
 from ..configs import smoke_config
 from ..convert import to_compute_dtype
+from ..graphs import GraphedForward
 from ..kernels import build
 from ..models import model as M
 from ..serving import (ModelHandle, RequestQueue, ServingEngine,
@@ -30,7 +32,11 @@ def build_handle(arch: str, name: str, *, layers: int | None = None,
                  device: str | torch.device = "cuda") -> ModelHandle:
     """A reduced-config model of ``arch`` with random weights drawn from
     ``seed`` on ``device`` (CUDA unless the caller asks for the CPU). On
-    CUDA the kernels are built here, in set-up, before any timed call."""
+    CUDA the kernels are built here, in set-up, before any timed call, and
+    the logits function replays CUDA graphs (``graphs.GraphedForward``, the
+    counterpart of the reference's ``jax.jit``): the engine's untimed
+    calibration call captures each at its stream and shape. On the CPU it
+    runs eagerly."""
     dev = resolve_device(device)
     cfg = smoke_config(arch)
     upd = {"vocab_size": 128, "scan_layers": False}
@@ -51,7 +57,8 @@ def build_handle(arch: str, name: str, *, layers: int | None = None,
         logits, _ = M.forward(p, cfg, tokens)
         return logits
 
-    return ModelHandle(name=name, cfg=cfg, params=params, fn=fn)
+    return ModelHandle(name=name, cfg=cfg, params=params,
+                       fn=GraphedForward(fn) if dev.type == "cuda" else fn)
 
 
 def main() -> None:

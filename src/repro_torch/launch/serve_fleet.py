@@ -36,18 +36,17 @@ On CUDA:
     (``kernels.build.counter_lock``), so the counts of two threads add up;
   * the handles are built (``build.load()`` compiles the kernels) and each
     node's engine calibrated on the main thread, inside that node's stream,
-    before any worker starts; the calibration's untimed first call makes
-    the stream's lazy allocations, and the device is synchronised before
+    before any worker starts; the calibration's untimed first call captures
+    each handle's CUDA graph for that stream (``graphs.GraphedForward``:
+    one graph, memory pool and static buffer per stream), so that no
+    capture lands inside an epoch, and the device is synchronised before
     the workers run.
 
-A forward's host code holds the GIL; two workers overlap only where one
-waits on the device. So each engine's calibrated ``lat_table``, measured
-alone, may understate the latency it sees under two threads; ``chip_smoke.py``
-measures both.
-
-Decode attention's merge counters are one buffer per device
-(``kernels.decode_attention``): this path runs only forwards and never
-reaches them.
+A served call is one graph replay: its host work is a few Python calls
+and one graph launch, not a launch per kernel, yet the engine's own Python
+still holds the GIL. So each engine's calibrated ``lat_table``, measured
+alone, may understate the latency it sees under two threads;
+``chip_smoke.py`` measures both.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_fleet --duration 4 \\
         --policy tuned_score --epochs 3 [--device cpu] [--obs DIR]
@@ -163,8 +162,9 @@ def _on_stream(node: EngineNode):
 def register_all(nodes: list[EngineNode], handles: list[ModelHandle],
                  calib: Callable[[ModelHandle], np.ndarray]) -> None:
     """Register and calibrate every handle on every node, on the calling
-    thread, each node inside its own stream; then wait for the device, so
-    that the workers start on finished set-up."""
+    thread, each node inside its own stream (where a graphed handle
+    captures that stream's graph); then wait for the device, so that the
+    workers start on finished set-up."""
     for node in nodes:
         with _on_stream(node):
             for h in handles:

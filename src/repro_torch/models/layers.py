@@ -160,8 +160,10 @@ def embed_tokens(params: dict, tokens: Tensor, scale: bool,
     table = params["table"].to(dtype)
     x = table[tokens.long()]
     if scale:
-        x = x * on_mesh_of(x, torch.tensor(math.sqrt(table.shape[-1]),
-                                           dtype=dtype, device=x.device))
+        # made on the device (not copied there from the host), so that a
+        # CUDA graph can capture it
+        x = x * on_mesh_of(x, torch.full((), math.sqrt(table.shape[-1]),
+                                         dtype=dtype, device=x.device))
     return x
 
 

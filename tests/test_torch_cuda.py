@@ -582,13 +582,17 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 
 @pytest.mark.cuda
 def test_served_models_launch_the_kernels(cuda):
+    """A served call (a graph replay, after the first call captured it)
+    launches each layer's kernel once, by the counters."""
     from repro_torch.launch.serve import build_handle
     h_att = build_handle("gemma2-2b", "ctx", layers=2)
     h_ssm = build_handle("mamba2-130m", "kws", layers=2)
+    tokens = torch.zeros((1, 16), dtype=torch.int32, device=cuda)
+    for h in (h_att, h_ssm):
+        h.fn(h.params, tokens)                   # captures
     fa.launches = ssd_mod.launches = 0
     for h in (h_att, h_ssm):
-        out = h.fn(h.params, torch.zeros((1, 16), dtype=torch.int32,
-                                         device=cuda))
+        out = h.fn(h.params, tokens)
         assert torch.isfinite(out).all()
     assert (fa.launches, ssd_mod.launches) == (2, 2)
 
@@ -1073,3 +1077,206 @@ def test_mesh_step_equals_the_meshless_step_on_the_card(cuda, arch, accum):
     assert runs[0][0] == runs[1][0]
     for a, b in zip(M.tree_leaves(runs[0][1]), M.tree_leaves(runs[1][1])):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs (repro_torch.graphs): the served forward and decode_step
+# ---------------------------------------------------------------------------
+
+SERVED = [("gemma-2b", 2), ("qwen1.5-4b", 2), ("gemma2-2b", 4),
+          ("mamba2-130m", 2)]
+
+
+def _tokens(seed, shape, vocab=128):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, shape).astype(
+        np.int32)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers", SERVED, ids=[a for a, _ in SERVED])
+def test_graphed_handle_equals_eager_bit_for_bit(cuda, arch, layers):
+    """``build_handle`` on CUDA replays a graph whose logits equal the eager
+    forward's bit for bit, and a call's logits are its own: a second call
+    on other tokens leaves the first call's unchanged."""
+    from repro_torch import graphs
+    from repro_torch.launch.serve import build_handle
+    h = build_handle(arch, "m", layers=layers)
+    assert isinstance(h.fn, graphs.GraphedForward)
+    t1, t2 = _tokens(1, (1, 32)), _tokens(2, (1, 32))
+    first = h.fn(h.params, t1)
+    kept = first.clone()
+    second = h.fn(h.params, t2)
+    torch.cuda.synchronize()
+    assert len(h.fn.graphs) == 1
+    assert torch.equal(first, h.fn.eager(h.params, t1))
+    assert torch.equal(second, h.fn.eager(h.params, t2))
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_graphed_handle_captures_again_on_a_new_shape_or_new_params(cuda):
+    """As ``jax.jit`` retraces: a new tokens shape or new params (other
+    storage) capture a graph of their own; the same key replays."""
+    from repro_torch.launch.serve import build_handle
+    from repro_torch.models import model as M
+    h = build_handle("gemma2-2b", "ctx", layers=2)
+    t32, t16 = _tokens(3, (1, 32)), _tokens(4, (1, 16))
+    h.fn(h.params, t32)
+    h.fn(h.params, t32)
+    assert len(h.fn.graphs) == 1
+    assert torch.equal(h.fn(h.params, t16), h.fn.eager(h.params, t16))
+    assert len(h.fn.graphs) == 2
+    other = M.tree_map(lambda t: (t * 1.5).to(t.dtype), h.params)
+    got = h.fn(other, t32)
+    assert len(h.fn.graphs) == 3
+    assert torch.equal(got, h.fn.eager(other, t32))
+    assert not torch.equal(got, h.fn(h.params, t32))
+    assert len(h.fn.graphs) == 3
+
+
+@pytest.mark.cuda
+def test_graphed_replay_adds_the_capture_s_launches(cuda):
+    """The capture records the launches of its calls and each replay adds
+    them to the counters: one flash launch a layer, one SSD call a layer."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import build_handle
+    for arch, layers, want in (
+            ("gemma2-2b", 4, {"flash_attention": (4, {"wgmma": 4})}),
+            ("mamba2-130m", 3, {"ssd": (3, {})})):
+        h = build_handle(arch, "m", layers=layers)
+        tokens = _tokens(5, (1, 32))
+        h.fn(h.params, tokens)
+        (graph,) = h.fn.graphs.values()
+        assert graph.launches == want
+        before = build.counts()
+        for _ in range(3):
+            h.fn(h.params, tokens)
+        after = build.counts()
+        for name, (n, by_kernel) in before.items():
+            dn, dk = want.get(name, (0, {}))
+            assert after[name] == (n + 3 * dn, {
+                k: v + 3 * dk.get(k, 0) for k, v in by_kernel.items()})
+
+
+def _decode_model(arch, seed=0):
+    from repro_torch.configs import smoke_config
+    from repro_torch.convert import to_compute_dtype
+    from repro_torch.models import model as M
+    cfg = smoke_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = to_compute_dtype(M.init_params(gen, cfg, "cuda"),
+                              M.compute_dtype(cfg))
+    return cfg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-130m",
+                                  "qwen3-moe-235b-a22b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_graphed_decode_equals_eager_bit_for_bit(cuda, arch):
+    """bf16 prefill, then five greedy steps eagerly and through
+    ``GraphedDecode`` from a copy of the same cache, fed the same tokens at
+    the same positions (one each sequence): every step's logits and the
+    final caches equal bit for bit."""
+    from repro_torch import graphs
+    from repro_torch.models import model as M
+    cfg, params = _decode_model(arch)
+    b, s, steps = 2, 12, 5
+    with torch.inference_mode():
+        cache = M.init_cache(cfg, b, 24, torch.bfloat16, "cuda")
+        logits, cache = M.prefill(params, cfg, _tokens(6, (b, s), 256), cache)
+        gcache = M.tree_map(torch.clone, cache)
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        feed, want = [], []
+        for i in range(steps):
+            pos = torch.tensor([s + i, s - 3 + i], dtype=torch.int32,
+                               device=cuda)
+            logits, cache = M.decode_step(params, cfg, nxt, cache, pos)
+            feed.append((nxt, pos))
+            want.append(logits)
+            nxt = logits[:, 0].argmax(-1).to(torch.int32)[:, None]
+    step = graphs.GraphedDecode(params, cfg, gcache)
+    for (tok, pos), w in zip(feed, want):
+        got, out_cache = step(tok, pos)
+        assert out_cache is gcache and torch.equal(got, w)
+    assert len(step.graphs) == 1
+    for a, c in zip(M.tree_leaves(gcache), M.tree_leaves(cache)):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_graphed_decode_on_two_streams_at_once_equals_replays_in_turn(cuda):
+    """Two ``GraphedDecode``s (two caches, one model), each captured and
+    replayed on its own stream by its own thread at once, behind a device
+    sleep so that the replays run side by side, at a shape whose global
+    layers split and merge on tickets: every output equals the same step
+    replayed in turn, bit for bit. Each graph's decode calls own their
+    tickets."""
+    from repro_torch import graphs
+    from repro_torch.models import model as M
+    cfg, params = _decode_model("gemma2-2b")
+    s = 2048
+    assert dec.num_splits(1, cfg.num_kv_heads, s, None,
+                          cfg.num_heads // cfg.num_kv_heads,
+                          cfg.head_dim) > 1
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    steps, args = [], []
+    for i in range(2):
+        gen = torch.Generator(device="cuda").manual_seed(60 + i)
+        cache = M.tree_map(
+            lambda t: torch.randn(t.shape, generator=gen, device="cuda").to(
+                t.dtype), M.init_cache(cfg, 1, s, torch.bfloat16, "cuda"))
+        steps.append(graphs.GraphedDecode(params, cfg, cache))
+        args.append((_tokens(61 + i, (1, 1), 256),
+                     torch.tensor([1500 - 200 * i], dtype=torch.int32,
+                                  device=cuda)))
+    want = []
+    for i in range(2):                       # capture, then in turn
+        with torch.cuda.stream(streams[i]):
+            steps[i](*args[i])
+            want.append(steps[i](*args[i])[0])
+            streams[i].synchronize()
+    assert not torch.equal(want[0], want[1])
+    reps = 30
+    start = threading.Barrier(2, timeout=60)
+
+    def work(i):
+        with torch.cuda.stream(streams[i]):
+            start.wait()
+            torch.cuda._sleep(10_000_000)
+            outs = [steps[i](*args[i])[0] for _ in range(reps)]
+            streams[i].synchronize()
+        return outs
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        got = list(pool.map(work, range(2), timeout=300))
+    for i, outs in enumerate(got):
+        assert len(steps[i].graphs) == 1
+        for out in outs:
+            assert torch.equal(out, want[i])
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_and_falls_back_to_nothing(cuda):
+    """A function that synchronises the device cannot be captured: the
+    graphed call raises, the function ran only its warm-up calls and the
+    capture (no eager call after), nothing is kept, the caller's stream is
+    current again, and the next capture works."""
+    from repro_torch import graphs
+    calls = []
+
+    def bad(p, t):
+        calls.append(t)
+        torch.cuda.synchronize()
+        return t * p["w"]
+
+    params = {"w": torch.full((4,), 2.0, device=cuda)}
+    t = torch.ones(4, device=cuda)
+    g = graphs.GraphedForward(bad)
+    with pytest.raises(RuntimeError):
+        g(params, t)
+    assert len(calls) == graphs.WARMUP_CALLS + 1 and g.graphs == {}
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    ok = graphs.GraphedForward(lambda p, x: x * p["w"])
+    assert torch.equal(ok(params, t), t * 2) and len(ok.graphs) == 1
