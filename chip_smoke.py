@@ -114,19 +114,35 @@ Phases, each of which raises (exit code != 0) on any failure:
    positions) and minitron-8b (32 layers), each whole, at its published
    width in bf16, through phase 7's run (1024-token prefill into a
    1056-row cache, 16 greedy steps) with all of its checks;
-10. training, through ``repro_torch.training`` on the torch path (no
-   kernel has a backward; every train run must launch none): one float32
+10. training, through ``repro_torch.training``: the forward and backward on
+   the torch path (no forward kernel has a backward; every train run must
+   launch none of the four), the AdamW update through the hand-written
+   kernel (``csrc/adamw.cu``, one launch a params leaf a step, counted
+   through the graphs' replays), and ``Trainer`` on CUDA replaying a CUDA
+   graph of its step (``graphs.GraphedTrainStep``, after two eager warm-up
+   steps): one float32
    step of qwen1.5-4b and mamba2-130m at smoke width, card against CPU
    (loss, metrics, gradients, params, m and v); gemma2-2b at its published
-   config for 6 steps through ``Trainer`` (bf16 compute, float32 master
-   params and AdamW state updated in place, batch 8 x 128, the reference
-   launcher's defaults): step ms, tokens/s, peak memory and model-FLOPs
-   share, every metric finite, 1024 tokens a step, peak memory under the
-   card's; mamba2-130m at its published config (batch 8 x 512, accum 2,
-   int8 gradient compression, a checkpoint every 2 steps) preempted at step
-   3 and resumed from its checkpoint, its trajectory equal to an
-   uninterrupted run's bit for bit under deterministic algorithms; the
-   final checkpoint restored into an ``LM`` and served by a 1024-token
+   config for 6 steps (bf16 compute, float32 master params and AdamW state
+   updated in place, batch 8 x 128, the reference launcher's defaults),
+   first under deterministic algorithms, the graphed ``Trainer`` against
+   the eager loop (``build_train_step``'s function called in a loop):
+   every metric and the final params, m and v bit for bit; then in the
+   normal mode through the graphed ``Trainer`` with the counters reset:
+   step ms, tokens/s, memory and model-FLOPs share, every metric finite,
+   1024 tokens a step, a replay profiled; then the eager control on the
+   same state (step ms, peak memory, a profiled step), the busy share,
+   device kernels and host launch calls a step of each; the AdamW kernel
+   against its plain version bit for bit at every gemma2-2b leaf shape and
+   at 1, 255, 257 and 2^20 + 3 elements, float32 and bfloat16 params, with
+   and without clipping, and one step's leaves timed against the bound,
+   the plain version and ``torch._fused_adamw_`` (with the two global
+   norms' time); mamba2-130m at its published config (batch 8 x 512,
+   accum 2, int8 gradient compression, a checkpoint every 2 steps) through
+   the graphed ``Trainer``, preempted at step 3 and resumed from its
+   checkpoint (a new capture over the restored state), its trajectory equal
+   to an uninterrupted run's bit for bit under deterministic algorithms;
+   the final checkpoint restored into an ``LM`` and served by a 1024-token
    prefill through the SSD kernel, each call held against float32 as in
    phase 5, the logits against the float32 torch forward;
 11. the device mesh and the dry-run, under an NCCL process group of one
@@ -148,7 +164,9 @@ Phases, each of which raises (exit code != 0) on any failure:
    counted once each on meta tensors and reported for the (16, 16) and
    (2, 16, 16) meshes (compute and memory terms, the dominant one, the
    argument GB per device), with the phase's seconds. No train or mesh run
-   launches a kernel; only the restored prefill adds SSD launches;
+   launches a forward kernel (the mesh step's AdamW kernel runs on each
+   rank's local shards, the mesh-less step is graphed); only the restored
+   prefill adds SSD launches;
 12. the fleet, run right after phase 5 on its handles (detector and
    verifier at smoke width, context at published width cut to 4 layers,
    kws whole, 1024-token prompts): ``repro_torch.launch.serve_fleet``'s
@@ -216,7 +234,9 @@ over the two serving runs, the fleet's epochs and the counted prefills of
 phases 7-9, SSD over the serving runs, the fleet's epochs, the counted
 prefills and the restored prefills of phases 10 and 11, decode attention
 over the eager and graphed steps of phases 7-9 (a graphed run's warm-up
-calls included), gmm over the MoE runs, eager and graphed.
+calls included), gmm over the MoE runs, eager and graphed, and adamw over
+every train run of phases 10 and 11 (eager steps, warm-up steps and
+replays).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -1073,11 +1093,12 @@ def graphed_forwards(torch, cases) -> None:
         torch.cuda.empty_cache()
 
 
-def profile_fn(torch, label: str, fn) -> list:
+def profile_fn(torch, label: str, fn, host: dict | None = None) -> list:
     """One synchronised call of ``fn`` (after one warm-up) under
     torch.profiler: device busy time against wall time, kernels by self
     time. Returns the kernels' rows, (self us, count, name), longest
-    first."""
+    first; ``host``, if given, gets the count of each CUDA runtime call
+    that launches work (``cuda*Launch*``) in that call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -1108,12 +1129,15 @@ def profile_fn(torch, label: str, fn) -> list:
             f"x{count:<4d} {key[:90]}")
     # the host's side: CUDA runtime calls (launches, copies, allocations,
     # synchronisations) by the host time they took
-    host = sorted(((e.self_cpu_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU
-                   and e.key.startswith("cuda")), reverse=True)
+    host_rows = sorted(((e.self_cpu_time_total, e.count, e.key)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CPU
+                        and e.key.startswith("cuda")), reverse=True)
     log(f"[profile]   host CUDA runtime calls: " + "; ".join(
-        f"{key} {us:.1f} us x{count}" for us, count, key in host[:4]))
+        f"{key} {us:.1f} us x{count}" for us, count, key in host_rows[:4]))
+    if host is not None:
+        host.update({key: count for _, count, key in host_rows
+                     if "Launch" in key})
     return rows
 
 
@@ -2596,12 +2620,13 @@ TRAIN_STATE_TOL = dict(atol=1e-5, rtol=1e-4)
 
 
 def kernel_modules() -> dict:
+    from repro_torch.kernels import adamw as adamw_mod
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gmm_mod
     from repro_torch.kernels import ssd as ssd_mod
     return {"flash_attention": fa, "ssd": ssd_mod, "decode_attention": dec,
-            "gmm": gmm_mod}
+            "gmm": gmm_mod, "adamw": adamw_mod}
 
 
 def kernel_counts() -> dict:
@@ -2617,22 +2642,38 @@ def reset_kernel_counters() -> None:
             mod.kernel_launches = dict.fromkeys(mod.kernel_launches, 0)
 
 
-class no_kernel_launch:
-    """Raises on exit if a CUDA kernel of the port launched inside: the
-    train step goes through the torch path (no kernel has a backward)."""
+class train_launches:
+    """Raises on exit unless, inside, none of the four forward kernels
+    launched (the train step goes through the torch path: no forward kernel
+    has a backward) and the AdamW kernel launched ``adamw`` times (one
+    launch a params leaf a step, graphed steps through their replays).
+    ``train_launches.adamw_total`` adds up every such run's AdamW launches
+    (the ``kernels`` line's count)."""
 
-    def __init__(self, label: str):
-        self.label = label
+    adamw_total = 0
+
+    def __init__(self, label: str, adamw: int):
+        self.label, self.adamw = label, adamw
 
     def __enter__(self):
         self.before = kernel_counts()
 
     def __exit__(self, exc_type, *exc):
         after = kernel_counts()
-        if exc_type is None and after != self.before:
-            raise AssertionError(f"{self.label}: kernels launched "
-                                 f"{self.before} -> {after}")
+        if exc_type is not None:
+            return False
+        added = {k: after[k] - self.before[k] for k in after}
+        want = dict.fromkeys(added, 0) | {"adamw": self.adamw}
+        if added != want:
+            raise AssertionError(f"{self.label}: kernels launched {added}, "
+                                 f"expected {want}")
+        train_launches.adamw_total += added["adamw"]
         return False
+
+
+def n_leaves(tree) -> int:
+    from repro_torch.models import model as M
+    return len(M.tree_leaves(tree))
 
 
 def flat_tree(tree, prefix: str = "") -> list:
@@ -2674,7 +2715,8 @@ def check_train_smoke(torch) -> None:
                             seed=3).batch(0)
         bc = {k: torch.from_numpy(v) for k, v in b.items()}
         bg = {k: v.to("cuda") for k, v in bc.items()}
-        with no_kernel_launch(f"{arch} smoke train step"):
+        with train_launches(f"{arch} smoke train step",
+                            adamw=n_leaves(card["params"])):
             grads_c, _ = build_grad_fn(cfg, tcfg)(cpu["params"], bc)
             grads_g, _ = build_grad_fn(cfg, tcfg)(card["params"], bg)
             step = build_train_step(cfg, tcfg)
@@ -2693,20 +2735,15 @@ def check_train_smoke(torch) -> None:
             f"loss {float(mg['loss'])} / {float(mc['loss'])}; max abs err "
             f"metrics {m_err} (rtol {TRAIN_METRIC_RTOL}), grads {g_err} "
             f"({TRAIN_GRAD_TOL}), params, m, v {s_err} ({TRAIN_STATE_TOL}); "
-            f"no kernel launched")
+            f"no forward kernel launched, the AdamW kernel once a leaf")
 
 
-def train_full_width(torch, card: str) -> float:
-    """gemma2-2b at its published config (26 layers, vocab 256000), bf16
-    compute over float32 master params and AdamW state, through ``Trainer``
-    for TRAIN_FULL_WIDTH's steps: step time (host clock around each step,
-    which ends on reading its metrics), tokens/s, peak memory and the
-    model-FLOPs share of the bf16 peak. Returns the median step ms."""
+def train_setup(torch):
+    """gemma2-2b's train run at TRAIN_FULL_WIDTH: (cfg, tcfg, its
+    synthetic data)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMData
-    from repro_torch.models import model as M
-    from repro_torch.training import (OptimConfig, TrainConfig, Trainer,
-                                      build_train_step)
+    from repro_torch.training import OptimConfig, TrainConfig
 
     arch, seq, batch, steps = TRAIN_FULL_WIDTH
     cfg = get_config(arch)
@@ -2715,20 +2752,121 @@ def train_full_width(torch, card: str) -> float:
                                          total_steps=steps))
     data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq,
                            global_batch=batch, seed=0)
+    return cfg, tcfg, data
+
+
+def on_card(batch: dict) -> dict:
+    import torch
+    return {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+
+
+def eager_steps(torch, cfg, tcfg, state, batches) -> tuple[list, list]:
+    """``build_train_step``'s function called in a loop on ``state``: the
+    eager control of the graphed ``Trainer``. Returns the metrics as
+    ``Trainer`` keeps them and each step's ms (host clock, synchronised)."""
+    from repro_torch.training import build_train_step
+    step_fn = build_train_step(cfg, tcfg)
+    hist, ms = [], []
+    for i, b in enumerate(batches):
+        b = on_card(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step_fn(state, b)
+        m = {k: float(v) for k, v in m.items()}
+        ms.append((time.perf_counter() - t0) * 1e3)
+        hist.append(m | {"step": int(state["opt"]["step"])})
+    return hist, ms
+
+
+def train_graphed_bitwise(torch, card: str) -> None:
+    """gemma2-2b at TRAIN_FULL_WIDTH under deterministic algorithms: the
+    eager loop (``build_train_step`` in a loop from the seed ``Trainer``
+    draws its state from), its final params, m and v kept on the host, then
+    the graphed ``Trainer`` over the same batches: every step's metrics and
+    the final params, m and v equal bit for bit. Steps 1-2 are its eager
+    warm-up steps, step 3 is captured and replayed, 4-6 are replays."""
+    from repro_torch import graphs
+    from repro_torch.training import Trainer, init_train_state
+
+    arch, seq, batch, steps = TRAIN_FULL_WIDTH
+    cfg, tcfg, data = train_setup(torch)
+    batches = [data.batch(i) for i in range(steps)]
+    torch.cuda.empty_cache()
+    with deterministic() as det0:
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg, tcfg, "cuda")
+        leaves = n_leaves(state["params"])
+        with train_launches(f"{arch} eager loop", adamw=steps * leaves):
+            want_hist, _ = eager_steps(torch, cfg, tcfg, state, batches)
+    want = {n: x.cpu() for n, x in flat_tree(state)}
+    del state
+    torch.cuda.empty_cache()
+    with deterministic() as det1, \
+            train_launches(f"{arch} graphed Trainer", adamw=steps * leaves):
+        tr = Trainer(cfg=cfg, tcfg=tcfg, data=iter(batches), log_every=1000,
+                     device="cuda")
+        if not isinstance(tr._step_fn, graphs.GraphedTrainStep):
+            raise AssertionError(f"{arch}: Trainer on CUDA is not graphed")
+        tr.init_or_resume(resume="never")
+        hist = tr.run(steps)
+    if len(tr._step_fn.graphs) != 1:
+        raise AssertionError(f"{arch}: {len(tr._step_fn.graphs)} graphs "
+                             f"captured, expected 1")
+    if hist != want_hist:
+        raise AssertionError(f"{arch}: graphed metrics {hist}, eager "
+                             f"{want_hist}")
+    for n, x in flat_tree(tr.state):
+        if not torch.equal(x.cpu(), want.pop(n)):
+            raise AssertionError(f"{arch}: graphed state {n} differs from "
+                                 f"the eager loop's")
+    log(f"[train] {arch} (published config) batch {batch} x {seq}, {steps} "
+        f"steps under deterministic algorithms: the graphed Trainer (steps "
+        f"1-{graphs.WARMUP_CALLS} eager warm-up, step "
+        f"{graphs.WARMUP_CALLS + 1} captured and replayed, then replays) "
+        f"equals the eager loop bit for bit, losses "
+        f"{[m['loss'] for m in hist]}, every metric and the final params, m, "
+        f"v and step; AdamW launches {steps} x {leaves} leaves in each; ops "
+        f"without a deterministic kernel: eager {det0.nondet}, graphed "
+        f"{det1.nondet}; {card}")
+    del tr, want
+    torch.cuda.empty_cache()
+
+
+def train_full_width(torch, card: str) -> tuple[float, dict]:
+    """gemma2-2b at its published config (26 layers, vocab 256000), bf16
+    compute over float32 master params and AdamW state, through the graphed
+    ``Trainer`` for TRAIN_FULL_WIDTH's steps, its launch counters reset
+    before: step time (host clock around each step, which ends on reading
+    its metrics), tokens/s, the memory the graph holds and the model-FLOPs
+    share of the bf16 peak; one replay profiled. Then the eager control on
+    the same state: the same steps through ``build_train_step``'s function
+    in a loop, its step time and peak memory, one eager step profiled.
+    Returns the graphed median step ms and the leaf shapes."""
+    from repro_torch import graphs
+    from repro_torch.models import model as M
+    from repro_torch.training import Trainer, build_train_step
+
+    arch, seq, batch, steps = TRAIN_FULL_WIDTH
+    cfg, tcfg, data = train_setup(torch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with no_kernel_launch(f"{arch} training"):
-        trainer = Trainer(cfg=cfg, tcfg=tcfg, data=iter(data), log_every=1,
-                          log_fn=lambda s: log(f"[train] {arch} {s}"),
-                          device="cuda")
-        trainer.init_or_resume(resume="never")
+    trainer = Trainer(cfg=cfg, tcfg=tcfg, data=iter(data), log_every=1,
+                      log_fn=lambda s: log(f"[train] {arch} {s}"),
+                      device="cuda")
+    trainer.init_or_resume(resume="never")
+    leaves = n_leaves(trainer.state["params"])
+    reset_kernel_counters()
+    with train_launches(f"{arch} graphed training", adamw=steps * leaves):
         hist = trainer.run(steps)
+    launches = kernel_counts()
     wall = time.perf_counter() - t0
     stats = torch.cuda.memory_stats()
-    peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
+    g_peak = torch.cuda.max_memory_allocated()
+    g_reserved = torch.cuda.memory_reserved()
     n_params = sum(p.numel() for p in M.tree_leaves(trainer.state["params"]))
+    shapes = [tuple(p.shape) for p in M.tree_leaves(trainer.state["params"])]
     times = [t * 1e3 for t in trainer.straggler.times]
     for m in hist:
         bad = [k for k, v in m.items() if not math.isfinite(v)]
@@ -2737,37 +2875,215 @@ def train_full_width(torch, card: str) -> float:
         if m["tokens"] != seq * batch:
             raise AssertionError(f"{arch} step {m['step']}: {m['tokens']} "
                                  f"tokens, expected {seq * batch}")
-    if not peak < total:
-        raise AssertionError(f"{arch}: peak memory {peak} above the card's "
-                             f"{total}")
-    med = statistics.median(times[1:])
+    if not g_reserved < total:
+        raise AssertionError(f"{arch}: reserved memory {g_reserved} above "
+                             f"the card's {total}")
+    # the replays after the capture's step
+    med = statistics.median(times[graphs.WARMUP_CALLS + 1:])
     tok_s = seq * batch / (med / 1e3)
     share = 6 * n_params * seq * batch / (med / 1e3) / PEAK_BF16
-    log(f"[train] {arch} ({cfg.num_layers} layers, {n_params} parameters, "
-        f"float32 master params and AdamW state, bf16 compute), batch "
-        f"{batch} x {seq} tokens, {steps} steps in {wall:.1f} s with set-up: "
-        f"step ms {times}; median step {med} ms over steps 2-{steps}, "
-        f"{tok_s} tokens/s, peak memory {peak} bytes of {total}, model-FLOPs "
-        f"share {share} of {PEAK_BF16 / 1e12:.0f} TFLOP/s bf16 "
-        f"(6 N tokens / step time); the caching allocator's cudaMalloc "
-        f"calls {stats['num_device_alloc']}, retries after a failed one "
-        f"{stats['num_alloc_retries']}; losses "
+    log(f"[train] {arch} ({cfg.num_layers} layers, {n_params} parameters in "
+        f"{leaves} leaves, float32 master params and AdamW state, bf16 "
+        f"compute), batch {batch} x {seq} tokens, graphed Trainer, {steps} "
+        f"steps in {wall:.1f} s with set-up: step ms {times} (steps 1-"
+        f"{graphs.WARMUP_CALLS} eager warm-up, {graphs.WARMUP_CALLS + 1} "
+        f"capture and replay); median replayed step {med} ms over steps "
+        f"{graphs.WARMUP_CALLS + 2}-{steps}, {tok_s} tokens/s, model-FLOPs "
+        f"share {share} of {PEAK_BF16 / 1e12:.0f} TFLOP/s bf16 (6 N tokens "
+        f"/ step time); peak allocated {g_peak} bytes (the warm-up steps "
+        f"included), reserved with the graph's pool {g_reserved} of {total}; "
+        f"cudaMalloc calls {stats['num_device_alloc']}, retries "
+        f"{stats['num_alloc_retries']}; launches {launches}; losses "
         f"{[m['loss'] for m in hist]}; {card}")
-    # where a step's time goes: one more step, profiled (autograd back on
-    # inside profile_fn's inference mode)
-    step_fn = build_train_step(cfg, tcfg)
-    batch = {k: torch.as_tensor(v).to("cuda")
-             for k, v in data.batch(steps).items()}
 
-    def one_step():
+    # where a step's time goes: a replay, then an eager step, profiled
+    # (autograd back on inside profile_fn's inference mode)
+    one = on_card(data.batch(steps))
+
+    def replay():
         with torch.inference_mode(False):
-            step_fn(trainer.state, batch)
-    with no_kernel_launch(f"{arch} profiled step"):
-        profile_fn(torch, f"{arch} train step (batch {batch['tokens'].shape[0]}"
-                   f" x {seq})", one_step)
-    del trainer, hist
+            trainer._step_fn(trainer.state, one)
+    host_g: dict = {}
+    with train_launches(f"{arch} profiled replays", adamw=2 * leaves):
+        rows_g = profile_fn(torch, f"{arch} graphed train step (batch "
+                            f"{batch} x {seq})", replay, host=host_g)
+    if len(trainer._step_fn.graphs) != 1:
+        raise AssertionError(f"{arch}: the profiled step captured again")
+    trainer._step_fn.graphs.clear()      # the graph's pool back
+    del hist
     torch.cuda.empty_cache()
-    return med
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = build_train_step(cfg, tcfg)
+
+    def eager():
+        with torch.inference_mode(False):
+            step_fn(trainer.state, one)
+    host_e: dict = {}
+    with train_launches(f"{arch} profiled eager steps", adamw=2 * leaves):
+        rows_e = profile_fn(torch, f"{arch} eager train step (batch "
+                            f"{batch} x {seq})", eager, host=host_e)
+    with train_launches(f"{arch} eager steps", adamw=steps * leaves):
+        _, e_ms = eager_steps(torch, cfg, tcfg, trainer.state,
+                              [data.batch(steps + 1 + i)
+                               for i in range(steps)])
+    e_peak = torch.cuda.max_memory_allocated()
+    e_reserved = torch.cuda.max_memory_reserved()
+    e_med = statistics.median(e_ms[1:])
+    busy = {"graphed": busy_ms(rows_g), "eager": busy_ms(rows_e)}
+    kern = {"graphed": sum(r[1] for r in rows_g),
+            "eager": sum(r[1] for r in rows_e)}
+    upd = {k: sum(r[0] for r in rows if "adamw_kernel" in r[2]) / 1e3
+           for k, rows in (("graphed", rows_g), ("eager", rows_e))}
+    log(f"[train] {arch} graphed vs eager step: median ms {med} / {e_med} "
+        f"(x{e_med / med:.2f}; eager steps {e_ms}); device busy "
+        f"{busy['graphed']} / {busy['eager']} ms a profiled step, busy share "
+        f"{busy['graphed'] / med:.3f} / {busy['eager'] / e_med:.3f}; device "
+        f"kernels a step {kern['graphed']} / {kern['eager']}; host launch "
+        f"calls a step {host_g} / {host_e}; the AdamW kernel's device ms a "
+        f"step {upd['graphed']} / {upd['eager']}; memory: graphed reserved "
+        f"{g_reserved} bytes (state and the graph's pool), eager peak "
+        f"allocated {e_peak}, peak reserved {e_reserved}; {card}")
+    del trainer
+    torch.cuda.empty_cache()
+    return med, {"shapes": shapes, "params": n_params, "leaves": leaves}
+
+
+#: odd leaf sizes the AdamW kernel is held to its plain version at
+ADAMW_ODD_SIZES = (1, 255, 257, 2 ** 20 + 3)
+
+
+def adamw_scalars(torch, clip: bool, grads=None):
+    """lr, the bias corrections at step 7 of TRAIN_FULL_WIDTH's schedule,
+    and a clip scale below 1 (from ``grads``' global norm), on the card."""
+    from repro_torch.training import OptimConfig, lr_at
+    from repro_torch.training.optim import global_norm
+
+    _, _, _, steps = TRAIN_FULL_WIDTH
+    cfg = OptimConfig(learning_rate=3e-3, warmup_steps=steps // 10,
+                      total_steps=2 * steps)
+    step = torch.tensor(7, dtype=torch.int32, device="cuda")
+    sc = dict(lr=lr_at(cfg, step), b1c=1.0 - cfg.b1 ** step.float(),
+              b2c=1.0 - cfg.b2 ** step.float(), scale=None)
+    if clip:
+        sc["scale"] = torch.clamp(0.5 / (global_norm(grads) + 1e-9), max=1.0)
+    return sc, dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps)
+
+
+def adamw_leaf(torch, gen, shape, dtype=None):
+    """p, g, m, v of a run under way: p (float32, or ``dtype``) ~ N(0, 1),
+    g ~ N(0, 1e-2), m ~ N(0, 1e-3), v ~ U(0, 1e-5)."""
+    f32 = dict(generator=gen, device="cuda")
+    p = torch.randn(shape, **f32)
+    g = 1e-2 * torch.randn(shape, **f32)
+    m = 1e-3 * torch.randn(shape, **f32)
+    v = 1e-5 * torch.rand(shape, **f32)
+    return (p.to(dtype) if dtype is not None else p), g, m, v
+
+
+def check_adamw(torch, info: dict, card: str) -> dict:
+    """The AdamW kernel against its plain version on the card: at every
+    leaf shape of gemma2-2b (one launch a leaf, decayed where the leaf is a
+    matrix) and at ADAMW_ODD_SIZES, with float32 and bfloat16 params, with
+    and without clipping: p, m and v equal bit for bit. Then one step's
+    leaves (float32, as the train step's) timed: the kernel over every leaf,
+    the plain version, ``torch._fused_adamw_`` on the same leaves (the
+    yardstick the port never calls: its formula differs), the two global
+    norms of the step, and the bound (the bytes over the card's rate).
+    Returns the ``kernels`` line's numbers."""
+    from repro_torch.kernels import adamw as adamw_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.training.optim import _is_matrix, global_norm
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    wd = 0.1
+    cases = [(s, "gemma2-2b") for s in info["shapes"]] + [
+        ((n,), "odd") for n in ADAMW_ODD_SIZES]
+    checked = 0
+    for shape, what in cases:
+        leaf = adamw_leaf(torch, gen, shape)
+        decay = wd if len(shape) >= 2 else 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            for clip in (False, True):
+                sc, kw = adamw_scalars(torch, clip, {"g": leaf[1]})
+                want = [leaf[0].to(dtype, copy=True)] + [
+                    t.clone() for t in leaf[1:]]
+                got = [t.clone() for t in want]
+                ref.adamw(*want, **sc, **kw, weight_decay=decay)
+                ops.adamw(*got, **sc, **kw, weight_decay=decay)
+                for name, a, b in zip("pgmv", got, want):
+                    if not torch.equal(a, b):
+                        err = float((a.float() - b.float()).abs().max())
+                        raise AssertionError(
+                            f"adamw {what} {shape} {dtype} clip={clip}: {name}"
+                            f" differs from the plain version (max abs "
+                            f"{err})")
+                checked += 1
+                del want, got
+        del leaf
+    torch.cuda.synchronize()
+    log(f"[kernels] adamw: {checked} launches bit-equal to the plain version "
+        f"(p, m, v): gemma2-2b's {len(info['shapes'])} leaf shapes and sizes "
+        f"{ADAMW_ODD_SIZES}, each with float32 and bfloat16 p, with and "
+        f"without clipping, decay 0.1 on matrices ({time.perf_counter() - t0:.1f} s)")
+
+    # one step's leaves, float32 as the train step's
+    leaves = [adamw_leaf(torch, gen, s) for s in info["shapes"]]
+    ps, gs, ms_, vs = (list(x) for x in zip(*leaves))
+    del leaves
+    sc, kw = adamw_scalars(torch, True, dict(enumerate(gs)))
+    decays = [wd if _is_matrix(p) else 0.0 for p in ps]
+
+    def run():
+        for p, g, m, v, d in zip(ps, gs, ms_, vs, decays):
+            ops.adamw(p, g, m, v, **sc, **kw, weight_decay=d)
+
+    def plain():
+        for p, g, m, v, d in zip(ps, gs, ms_, vs, decays):
+            ref.adamw(p, g, m, v, **sc, **kw, weight_decay=d)
+
+    steps = [torch.tensor(7.0, device="cuda") for _ in ps]
+
+    def library():
+        torch._fused_adamw_(ps, gs, ms_, vs, [], steps, lr=3e-3,
+                            beta1=kw["b1"], beta2=kw["b2"], weight_decay=wd,
+                            eps=kw["eps"], amsgrad=False, maximize=False)
+
+    def norms():
+        global_norm(dict(enumerate(gs)))
+        global_norm(dict(enumerate(ps)))
+
+    n = sum(p.numel() for p in ps)
+    before = adamw_mod.launches
+    ms = time_ms(run, warmup=1, reps=5)
+    launched = adamw_mod.launches - before
+    if launched != 6 * len(ps):
+        raise AssertionError(f"adamw timing: {launched} launches, expected "
+                             f"6 x {len(ps)}")
+    plain_ms = time_ms(plain, warmup=1, reps=3)
+    lib_ms = time_ms(library, warmup=1, reps=5)
+    norm_ms = time_ms(norms, warmup=1, reps=5)
+    nbytes = sum(adamw_mod.hbm_bytes(p.numel(), 4) for p in ps)
+    flops = sum(adamw_mod.flops(p.numel(), True, d != 0.0)
+                for p, d in zip(ps, decays))
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FP32_CORES * 1e3
+    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                          else (t_ops, "operations"))
+    log(f"[kernels] adamw gemma2-2b one step: {len(ps)} leaves, {n} float32 "
+        f"params, one launch a leaf: ms={ms} plain_ms={plain_ms} "
+        f"bound_ms={bound_ms} ({bound_by}: {nbytes} bytes at "
+        f"{PEAK_BYTES / 1e12} TB/s; {flops} float32 operations at "
+        f"{PEAK_FP32_CORES / 1e12:.0f} TFLOP/s = {t_ops} ms) "
+        f"library_ms={lib_ms} (torch._fused_adamw_ over the same leaves); "
+        f"achieved {nbytes / (ms / 1e3) / 1e12:.3f} TB/s, "
+        f"{bound_ms / ms:.3f} of the bound; the step's two global norms "
+        f"(grads, params) {norm_ms} ms; {card}")
+    del ps, gs, ms_, vs, steps
+    torch.cuda.empty_cache()
+    # every check above is bit-equal, or it raised
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
 def train_restart(torch) -> tuple[dict, dict]:
@@ -2786,6 +3102,7 @@ def train_restart(torch) -> tuple[dict, dict]:
     the prefill's logits."""
     import tempfile
     import warnings
+    from repro_torch import graphs
     from repro_torch.configs import get_config
     from repro_torch.convert import to_compute_dtype
     from repro_torch.data import SyntheticLMData
@@ -2813,10 +3130,14 @@ def train_restart(torch) -> tuple[dict, dict]:
     tmp = tempfile.TemporaryDirectory()
     ckpt = tmp.name
     t0 = time.perf_counter()
+    leaves = n_leaves(M.param_spec(cfg))
+    # AdamW launches: the uninterrupted run's steps, the preempted run's
+    # fail_at steps and the resumed run's
+    adamw = (steps + fail_at + steps - fail_at // every * every) * leaves
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with warnings.catch_warnings(record=True) as caught, \
-                no_kernel_launch(f"{arch} training"):
+                train_launches(f"{arch} training", adamw=adamw):
             warnings.simplefilter("always")
             ref = trainer(None, iter(data))
             ref.init_or_resume(resume="never")
@@ -2838,6 +3159,11 @@ def train_restart(torch) -> tuple[dict, dict]:
             hist = resumed.run(steps)
     finally:
         torch.use_deterministic_algorithms(False)
+    graphed = [len(t._step_fn.graphs) for t in (ref, first, resumed)]
+    if graphed != [1, 1, 1]:
+        raise AssertionError(f"{arch}: graphs captured by the uninterrupted, "
+                             f"preempted and resumed runs {graphed}, "
+                             f"expected one each")
     nondet = sorted({str(w.message) for w in caught
                      if "deterministic" in str(w.message)})
     want = ref_hist[start:]
@@ -2859,7 +3185,10 @@ def train_restart(torch) -> tuple[dict, dict]:
             if not torch.equal(a, b):
                 raise AssertionError(f"{arch}: resumed state {n} differs")
     log(f"[train] {arch} (published config, bf16 compute) batch {batch} x "
-        f"{seq}, accum {accum}, int8 compression, checkpoint every {every}: "
+        f"{seq}, accum {accum}, int8 compression, checkpoint every {every}, "
+        f"through the graphed Trainer (each run's steps after its first "
+        f"{graphs.WARMUP_CALLS} replayed; the resumed run captured its own "
+        f"graph over the restored state): "
         f"preempted at step {fail_at}, resumed from {start}; losses of steps "
         f"{start + 1}-{steps} resumed {[m['loss'] for m in hist]}, "
         f"uninterrupted {[m['loss'] for m in want]}: "
@@ -2911,14 +3240,17 @@ def train_restart(torch) -> tuple[dict, dict]:
     return launches, handoff
 
 
-def train_phase(torch, card: str) -> tuple[dict, float, dict]:
-    """Returns the restored prefill's launches, gemma2-2b's median step ms
-    and ``train_restart``'s hand-off to phase 11."""
+def train_phase(torch, card: str) -> tuple[dict, float, dict, dict]:
+    """Returns the restored prefill's launches, gemma2-2b's median graphed
+    step ms, ``train_restart``'s hand-off to phase 11 and the AdamW
+    kernel's numbers for the ``kernels`` line."""
     torch.cuda.empty_cache()
     check_train_smoke(torch)
-    step_ms = train_full_width(torch, card)
+    train_graphed_bitwise(torch, card)
+    step_ms, info = train_full_width(torch, card)
+    adamw = check_adamw(torch, info, card)
     launches, handoff = train_restart(torch)
-    return launches, step_ms, handoff
+    return launches, step_ms, handoff, adamw
 
 # ---------------------------------------------------------------------------
 # phase 11: the device mesh and the dry-run
@@ -2975,6 +3307,7 @@ def mesh_train(torch, card: str, mesh, phase10_ms: float) -> None:
     from repro_torch.data import SyntheticLMData
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import model as M
     from repro_torch.training import OptimConfig, TrainConfig, Trainer
 
     arch, seq, batch, steps10 = TRAIN_FULL_WIDTH
@@ -2996,7 +3329,8 @@ def mesh_train(torch, card: str, mesh, phase10_ms: float) -> None:
         return t
 
     torch.cuda.empty_cache()
-    with no_kernel_launch(f"{arch} mesh-less training"), \
+    n_leaf = n_leaves(M.param_spec(cfg))
+    with train_launches(f"{arch} mesh-less training", adamw=steps * n_leaf), \
             deterministic() as det0:
         plain = trainer(None)
         want_hist = plain.run(steps)
@@ -3005,7 +3339,8 @@ def mesh_train(torch, card: str, mesh, phase10_ms: float) -> None:
     del plain
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with no_kernel_launch(f"{arch} mesh training"), deterministic() as det1:
+    with train_launches(f"{arch} mesh training", adamw=steps * n_leaf), \
+            deterministic() as det1:
         tr = trainer(mesh)
         hist = tr.run(steps)
     peak = torch.cuda.max_memory_allocated()
@@ -3041,7 +3376,7 @@ def mesh_train(torch, card: str, mesh, phase10_ms: float) -> None:
         raise AssertionError(f"{arch}: dry-run argument bytes "
                              f"{res['memory']}, the card's state {have} and "
                              f"batch {batch_bytes}")
-    with no_kernel_launch(f"{arch} counted mesh step"), \
+    with train_launches(f"{arch} counted mesh step", adamw=n_leaf), \
             FlopCounterMode(display=False) as fc:
         tr.run(steps + 1)
     real = fc.get_total_flops()
@@ -3097,7 +3432,9 @@ def mesh_restart(torch, mesh, handoff: dict) -> dict:
         shutil.copytree(os.path.join(src, name), os.path.join(ckpt, name))
         rules = rules_for(cfg, mesh, ShapeCell(f"train_{seq}", seq, batch,
                                                "train"))
-        with no_kernel_launch(f"{arch} mesh training"), \
+        with train_launches(f"{arch} mesh training",
+                            adamw=(steps - start) * n_leaves(
+                                M.param_spec(cfg))), \
                 deterministic() as det:
             tr = Trainer(cfg=cfg, tcfg=tcfg,
                          data=iter(data.batch(s) for s in range(start, steps)),
@@ -3649,7 +3986,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
     ptxas_report(build.build_log(), ("gmm_", "ssd_", "flash_wgmma_kernel",
-                                     "decode_"))
+                                     "decode_", "adamw_"))
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3682,7 +4019,7 @@ def main() -> int:
 
     # 10. training
     t_train = time.perf_counter()
-    train_launches, train_ms, handoff = train_phase(torch, card)
+    train_prefill, train_ms, handoff, adamw = train_phase(torch, card)
 
     # 11. the device mesh and the dry-run
     t_mesh = time.perf_counter()
@@ -3704,15 +4041,18 @@ def main() -> int:
         f"{time.perf_counter() - t_fleetsim:.1f} s")
     log(f"[launches] serving {launches}, fleet {fleet_launches}, decode "
         f"{dec_launches}, MoE "
-        f"{moe_launches}, archs {arch_launches}, training {train_launches}, "
-        f"mesh {mesh_launches}")
+        f"{moe_launches}, archs {arch_launches}, training {train_prefill}, "
+        f"mesh {mesh_launches}, AdamW in the train runs of phases 10-11 "
+        f"{train_launches.adamw_total}")
     launches = sum_launches([{"launches": launches},
                              {"launches": fleet_launches},
                              {"launches": dec_launches},
                              {"launches": moe_launches},
                              {"launches": arch_launches},
-                             {"launches": train_launches},
-                             {"launches": mesh_launches}])
+                             {"launches": train_prefill},
+                             {"launches": mesh_launches},
+                             {"launches": {"adamw":
+                                           train_launches.adamw_total}}])
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -3731,6 +4071,11 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/gmm.cu",
              replaces="src/repro/kernels/gmm.py:70",
              launches=launches["gmm"], **gmm_headline),
+        dict(name="adamw", route="cuda",
+             source="src/repro_torch/kernels/csrc/adamw.cu",
+             replaces="src/repro/training/optim.py:75 apply_updates "
+                      "(XLA-fused under jax.jit)",
+             launches=launches["adamw"], **adamw),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -91,18 +91,29 @@ def _quantise(x: Tensor, block: int) -> Tensor:
 
 def compress_with_feedback(grads: Any, err: Any, cfg: CompressionConfig
                            ) -> tuple[Any, Any]:
-    """Returns (compressed grads, new error state)."""
+    """Returns (compressed grads, new error state). The new error is
+    written into the leaves of ``err`` in place (``err`` itself is
+    returned), so each leaf keeps its address across steps, as a captured
+    CUDA graph of the train step needs; the reference returns new arrays of
+    the same values."""
     if not cfg.enabled:
         return grads, err
 
     def one(g, e):
         s = g.float() + e
         q = _quantise(s, cfg.block)
-        return q, s - q
+        _write(e, s - q)
+        return q
 
-    pairs = _zip_map(one, grads, err)
-    return (tree_map(lambda pr: pr[0], pairs),
-            tree_map(lambda pr: pr[1], pairs))
+    return _zip_map(one, grads, err), err
+
+
+def _write(e: Tensor, x: Tensor) -> None:
+    """``e.copy_(x)``, ``x`` placed as ``e`` first on a mesh (a quantised
+    gradient made whole comes back replicated)."""
+    if isinstance(e, DTensor) and x.placements != e.placements:
+        x = x.redistribute(e.device_mesh, e.placements)
+    e.copy_(x)
 
 
 def _zip_map(fn, a: Any, b: Any) -> Any:

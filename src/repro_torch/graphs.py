@@ -1,11 +1,12 @@
-"""CUDA graphs for the served forward and ``decode_step``: the port's
-counterpart of ``jax.jit`` on the serving path.
+"""CUDA graphs for the served forward, ``decode_step`` and the train step:
+the port's counterpart of ``jax.jit``.
 
-The JAX package compiles the step it serves: ``repro/launch/serve.py``
-wraps each model's logits function in ``jax.jit``, and the engine runs each
-frame as one compiled program at the shape it was calibrated on. Run
-eagerly, every kernel of a forward or decode step is a launch dispatched
-from Python, and the host, not the card, bounds the served latency. Here
+The JAX package compiles the step it serves and the step it trains:
+``repro/launch/serve.py`` wraps each model's logits function in
+``jax.jit``, the engine runs each frame as one compiled program at the shape
+it was calibrated on, and ``repro/training/train.py``'s ``Trainer`` jits
+``build_train_step``. Run eagerly, every kernel of a step is a launch
+dispatched from Python, and the host, not the card, bounds the step. Here
 the same function is captured once per key into a ``torch.cuda.CUDAGraph``
 and replayed.
 
@@ -18,20 +19,32 @@ and replayed.
   per calling stream and batch. The step takes ``pos`` on the device, writes
   the cache in place and sizes every kernel from the shapes alone, so one
   graph serves every position.
+* ``GraphedTrainStep(fn)``: ``train_step(state, batch) -> (state,
+  metrics)`` (``training.build_train_step``), one graph per calling stream,
+  batch keys with their shapes and dtypes, and the ``data_ptr``s of every
+  state leaf (params, m, v, step, err): the step updates them in place, so a
+  restored or reallocated state captures again. Its warm-up calls are the
+  run's own steps (below).
 
-Common to both:
+Common to all three:
 
 * a graph is captured on a stream of its own, after ``WARMUP_CALLS`` eager
   calls there, so that what the first call makes lazily (the kernels
   library, each kernel's shared-memory attribute, cuBLAS's workspace for the
-  stream) exists before the capture; it is replayed on the caller's current
-  stream. Each graph has its own memory pool and static inputs, so graphs
-  replayed at once on two streams share no buffer (decode attention's merge
-  counters included: a captured call takes them from its graph's pool);
+  stream, autograd's device thread) exists before the capture; it is
+  replayed on the caller's current stream. The forward warms up on its
+  inputs and the decode step on a zeroed scratch cache; the train step
+  cannot (a scratch copy of gemma2-2b's state is 31 GB), so its first
+  ``WARMUP_CALLS`` calls with a key are real steps, run eagerly on the
+  graph's stream, and the next call captures (which executes nothing) and
+  replays: the run's trajectory is an eager run's. Each graph has its own
+  memory pool and static inputs, so graphs replayed at once on two streams
+  share no buffer (decode attention's merge counters included: a captured
+  call takes them from its graph's pool);
 * a call copies its inputs into the graph's static inputs, replays, and
-  returns a fresh clone of the static output, as ``jax.jit`` returns new
-  arrays: an engine keeps every frame's result, which the next replay would
-  otherwise overwrite;
+  returns a fresh clone of the static output (each leaf of the train
+  step's metrics), as ``jax.jit`` returns new arrays: an engine keeps every
+  frame's result, which the next replay would otherwise overwrite;
 * the capture's kernel calls are recorded, not counted
   (``kernels.build.recording``); each replay adds them to the bindings'
   launch counters (``kernels.build.add_counts``);
@@ -47,9 +60,10 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .configs import ArchConfig
 from .kernels import build
@@ -69,45 +83,48 @@ def _ptrs(tree) -> tuple[int, ...]:
 
 @dataclass
 class Graph:
-    """One captured call: its graph, static inputs and output, and the
-    kernel launches its capture recorded ({binding: (launches, {kernel:
-    launches})})."""
+    """One captured call: its graph, static inputs and output (a tensor or
+    a dict of them), and the kernel launches its capture recorded
+    ({binding: (launches, {kernel: launches})})."""
 
     graph: torch.cuda.CUDAGraph
     inputs: tuple[Tensor, ...]
-    output: Tensor
+    output: Any
     launches: dict
 
-    def replay(self, *args: Tensor) -> Tensor:
+    def replay(self, *args: Tensor) -> Any:
         """Copy ``args`` into the static inputs and replay on the current
         stream; a fresh copy of the output."""
         for static, a in zip(self.inputs, args):
             static.copy_(a)
         self.graph.replay()
         build.add_counts(self.launches)
-        return self.output.clone()
+        return M.tree_map(torch.clone, self.output)
 
 
-def capture(run: Callable[..., Tensor], inputs: tuple[Tensor, ...],
-            warm: Optional[Callable[..., Tensor]] = None) -> Graph:
+def capture(run: Callable[..., Any], inputs: tuple[Tensor, ...],
+            warm: Optional[Callable[..., Any]] = None, *,
+            warmup: int = WARMUP_CALLS,
+            side: Optional[torch.cuda.Stream] = None,
+            mode: str = "thread_local") -> Graph:
     """Capture ``run(*static)`` on static copies of ``inputs``, made on the
-    caller's current stream, after ``WARMUP_CALLS`` calls of ``warm`` (by
-    default ``run``) on them on a stream of the capture's own. Raises if
-    the capture fails; the caller's current stream is current again
-    afterwards either way."""
+    caller's current stream, after ``warmup`` calls of ``warm`` (by
+    default ``run``) on them on the capture's stream ``side`` (by default a
+    new one), in ``torch.cuda.graph``'s ``capture_error_mode`` ``mode``.
+    Raises if the capture fails; the caller's current stream is current
+    again afterwards either way."""
     device = inputs[0].device
     caller = torch.cuda.current_stream(device)
     static = tuple(t.clone() for t in inputs)
-    side = torch.cuda.Stream(device)
+    side = side if side is not None else torch.cuda.Stream(device)
     side.wait_stream(caller)
     with torch.cuda.stream(side):
-        for _ in range(WARMUP_CALLS):
+        for _ in range(warmup):
             (warm or run)(*static)
     g = torch.cuda.CUDAGraph()
     try:
         with build.recording() as launches:
-            with torch.cuda.graph(g, stream=side,
-                                  capture_error_mode="thread_local"):
+            with torch.cuda.graph(g, stream=side, capture_error_mode=mode):
                 out = run(*static)
     finally:
         # a capture that fails inside ``torch.cuda.graph`` leaves its
@@ -190,3 +207,82 @@ class GraphedDecode:
                     del scratch
                     self.graphs[key] = g
             return g.replay(tokens, pos), self.cache
+
+
+class GraphedTrainStep:
+    """``train_step(state, batch) -> (state, metrics)`` replayed from CUDA
+    graphs on a CUDA state, the counterpart of ``jax.jit(train_step)`` in
+    the JAX package's ``Trainer`` (see the module docstring); ``eager`` is
+    ``train_step`` itself, ``graphs`` holds one ``Graph`` per key.
+
+    ``train_step`` must update every state leaf in place (it does: params,
+    m, v and the step by the optimizer, the error state by
+    ``compress_with_feedback``): the graph bakes in their addresses. The
+    first ``WARMUP_CALLS`` calls with a key run the step eagerly on the
+    key's own stream, the next one captures it there and replays it, and
+    every later call copies the batch into the graph's static batch and
+    replays on the caller's stream. A call returns the state (updated in
+    place) and the metrics, fresh tensors.
+
+    The capture runs in ``capture_error_mode="global"``, the mode of
+    ``torch.cuda.make_graphed_callables``, which also captures a backward:
+    ``torch.autograd.grad`` runs the backward on autograd's device thread,
+    and ``"thread_local"`` would forbid unsafe CUDA calls (a host sync) only
+    on the capturing thread, leaving that one unchecked.
+
+    Plain tensors only: a state of DTensors (``Trainer`` on a mesh) raises.
+    """
+
+    def __init__(self, fn: Callable[[dict, dict], tuple[dict, dict]]):
+        self.eager = fn
+        self.graphs: dict[tuple, Graph] = {}
+        #: per key not captured yet: (eager calls made, the key's stream)
+        self._warm: dict[tuple, tuple[int, torch.cuda.Stream]] = {}
+
+    def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
+        leaves = M.tree_leaves(state)
+        device = leaves[0].device
+        if device.type != "cuda":
+            return self.eager(state, batch)
+        if any(isinstance(t, DTensor) for t in leaves):
+            raise TypeError("GraphedTrainStep takes plain tensors; a mesh "
+                            "step (DTensors) runs eagerly")
+        names = sorted(batch)
+        inputs = tuple(batch[k] for k in names)
+        stream = torch.cuda.current_stream(device)
+        key = (device.index, stream.cuda_stream,
+               tuple((k, tuple(t.shape), t.dtype) for k, t in zip(names,
+                                                                  inputs)),
+               _ptrs(state))
+        g = self.graphs.get(key)
+        if g is None:
+            with _capture_lock:
+                g = self.graphs.get(key)
+                if g is None:
+                    calls, side = self._warm.get(key, (0, None))
+                    side = side if side is not None else torch.cuda.Stream(
+                        device)
+                    if calls < WARMUP_CALLS:
+                        self._warm[key] = (calls + 1, side)
+                        return state, self._eager_on(side, state, batch)
+
+                    def run(*static):
+                        return self.eager(state, dict(zip(names, static)))[1]
+                    g = capture(run, inputs, warmup=0, side=side,
+                                mode="global")
+                    del self._warm[key]
+                    self.graphs[key] = g
+        return state, g.replay(*inputs)
+
+    def _eager_on(self, side: torch.cuda.Stream, state: dict,
+                  batch: dict) -> dict:
+        """One eager step on ``side``, ordered after the caller's stream
+        and before its later work; the metrics."""
+        caller = torch.cuda.current_stream(side.device)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            _, metrics = self.eager(state, batch)
+        caller.wait_stream(side)
+        for t in metrics.values():
+            t.record_stream(caller)     # read on the caller's stream
+        return metrics

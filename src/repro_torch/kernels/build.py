@@ -39,7 +39,7 @@ _lib: ctypes.CDLL | None = None
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
 #: the binding modules whose launch counters ``counts`` reads, by name
-BINDINGS = ("flash_attention", "ssd", "decode_attention", "gmm")
+BINDINGS = ("flash_attention", "ssd", "decode_attention", "gmm", "adamw")
 #: per thread: the launches recorded into the CUDA graph being captured
 _recording = threading.local()
 
@@ -222,6 +222,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         i,                          # splits of D (bf16, with partials)
         p]                          # cudaStream_t
     lib.repro_gmm_fwd.restype = i
+    lib.repro_adamw_fwd.argtypes = [
+        p, p, p, p,                 # p, g, m, v
+        ctypes.c_int64, i,          # n, p dtype: 0 float32, 1 bfloat16
+        p, p, p, p,                 # lr, b1c, b2c, clip scale (or null), on the device
+        f, f, f, f, f, f,           # b1, 1 - b1, b2, 1 - b2, eps, weight decay
+        p]                          # cudaStream_t
+    lib.repro_adamw_fwd.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

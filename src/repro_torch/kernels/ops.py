@@ -20,7 +20,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from . import adamw as _adamw
 from . import decode_attention as _dec
 from . import flash_attention as _fa
 from . import gmm as _gmm
@@ -142,3 +144,45 @@ def gmm(x_sorted: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     if _on_cuda(x_sorted, w, group_sizes):
         return _gmm.gmm(x_sorted, w, group_sizes)
     return ref.gmm(x_sorted, w, group_sizes)
+
+
+def _shard(x: torch.Tensor, like: torch.Tensor, name: str,
+           move: bool = False) -> torch.Tensor:
+    """The rank's local shard of a DTensor ``x`` placed as ``like`` (with
+    ``move``, redistributed there first; else its placements must already
+    be ``like``'s); a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    if x.placements != like.placements:
+        if not move:
+            raise ValueError(f"adamw: {name} placed {x.placements}, p "
+                             f"{like.placements}")
+        x = x.redistribute(like.device_mesh, like.placements)
+    return x.to_local()
+
+
+def _whole(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A scalar DTensor's value on this rank (``full_tensor``)."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+          *, lr: torch.Tensor, b1c: torch.Tensor, b2c: torch.Tensor,
+          scale: Optional[torch.Tensor], b1: float, b2: float, eps: float,
+          weight_decay: float) -> None:
+    """One leaf's AdamW update, in place on p, m and v (see ``ref.adamw``):
+    the kernel on CUDA tensors, the plain version on CPU or meta tensors.
+    On a mesh (DTensors) the kernel runs on each rank's local shards of p,
+    m and v (placed alike), with g redistributed to p's placements, and
+    reads each rank's copy of the scalars; the plain version runs on the
+    DTensors."""
+    scalars = (lr, b1c, b2c) + ((scale,) if scale is not None else ())
+    if not _on_cuda(p, g, m, v, *scalars):
+        ref.adamw(p, g, m, v, lr, b1c, b2c, scale, b1=b1, b2=b2, eps=eps,
+                  weight_decay=weight_decay)
+        return
+    # a gradient from autograd may be strided; the kernel reads it flat
+    _adamw.adamw(_shard(p, p, "p"), _shard(g, p, "g", move=True).contiguous(),
+                 _shard(m, p, "m"), _shard(v, p, "v"), _whole(lr),
+                 _whole(b1c), _whole(b2c), _whole(scale), b1=b1, b2=b2,
+                 eps=eps, weight_decay=weight_decay)

@@ -207,3 +207,30 @@ def gmm(x: torch.Tensor, w: torch.Tensor,
             out[rows] = (x[rows].float() @ w[e].float()).to(x.dtype)
         start += n
     return out
+
+
+# ---------------------------------------------------------------------------
+# AdamW update
+# ---------------------------------------------------------------------------
+
+
+def adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+          lr: torch.Tensor, b1c: torch.Tensor, b2c: torch.Tensor,
+          scale: Optional[torch.Tensor], *, b1: float, b2: float, eps: float,
+          weight_decay: float) -> None:
+    """One leaf's AdamW update in place on p, m and v (g is read): the
+    gradient times the clip ``scale`` (None: no clipping), the moments, the
+    bias-corrected step over lr and the decoupled weight decay (0 to skip),
+    in float32, cast to p's dtype. The same arithmetic as the JAX package's
+    ``apply_updates``, in place: each operation is one float32 rounding,
+    the order ``csrc/adamw.cu`` repeats."""
+    if scale is not None:
+        g = g * scale
+    m.mul_(b1).add_(g * (1 - b1))
+    v.mul_(b2).add_(g.mul(1 - b2).mul_(g))
+    del g
+    delta = m / b1c
+    delta.div_((v / b2c).sqrt_().add_(eps))
+    if weight_decay:
+        delta.add_(weight_decay * p.float())
+    p.sub_(delta.mul_(lr))      # in float32, cast to p's dtype

@@ -9,7 +9,12 @@ The reference's update is functional (new m, v and params beside the old
 ones). Here ``apply_updates`` writes m, v and the params in place, leaf by
 leaf, with the same arithmetic in the same order: at gemma2-2b's 2.6 B
 parameters a second copy of the three would not fit on one 80 GB card beside
-the gradients.
+the gradients. Each leaf's update is ``kernels.ops.adamw``: on the card one
+launch of the hand-written kernel (``kernels/csrc/adamw.cu``), the pass XLA
+fuses under ``jax.jit``; on the CPU and on meta tensors its plain version
+(``kernels.ref.adamw``). lr, the bias corrections and the clip scale stay
+on the device, so a captured step reads each step's values. The two global
+norms stay torch reductions.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..kernels import ops as kops
 from ..placement import on_mesh_of
 from ..models.model import tree_leaves, tree_map
 
@@ -107,17 +113,9 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: OptimConfig,
 
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
-        if scale is not None:
-            g = g * scale
-        m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
-        v.mul_(cfg.b2).add_(g.mul(1 - cfg.b2).mul_(g))
-        del g
-        delta = m / b1c
-        delta.div_((v / b2c).sqrt_().add_(cfg.eps))
-        if cfg.weight_decay and _is_matrix(p):
-            delta.add_(cfg.weight_decay * p.float())
-        p.sub_(delta.mul_(lr))      # in float32, cast to p's dtype
-        del delta
+        kops.adamw(p, g, m, v, lr=lr, b1c=b1c, b2c=b2c, scale=scale,
+                   b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                   weight_decay=cfg.weight_decay if _is_matrix(p) else 0.0)
     metrics = {"lr": lr, "grad_norm": gnorm,
                "param_norm": global_norm(params)}
     return params, state, metrics

@@ -16,6 +16,15 @@ einsum dispatch), since none of its Pallas kernels has a backward pass, and
 neither has any CUDA kernel of the port (their bindings raise on an input
 that requires grad).
 
+On the card without a mesh, ``Trainer`` runs its step as the JAX
+``Trainer`` runs ``jax.jit(train_step)``: as one program,
+``graphs.GraphedTrainStep``, a CUDA graph captured after two eager warm-up
+steps and replayed for each later step, bit-equal to the eager step. The
+state is updated in place, the error state of the gradient compression
+included, so every leaf keeps its address from step to step; a restored
+state captures again. On the CPU, and on a mesh, the step runs eagerly (a
+graphed DTensor step is still to be ported).
+
 Sharding: ``build_train_step(cfg, tcfg, rules)`` binds
 ``distributed.sharding.constrain`` to the rule table and passes it into
 ``forward``, as the reference does. ``Trainer(mesh=..., rules=...)`` puts
@@ -41,6 +50,7 @@ from ..distributed import (CheckpointManager, CompressionConfig,
                            FaultInjector, StragglerDetector,
                            compress_with_feedback, init_error_state)
 from ..distributed import sharding as shd
+from ..graphs import GraphedTrainStep
 from ..models import model as M
 from . import loss as L
 from . import optim
@@ -122,8 +132,9 @@ def build_train_step(cfg: ArchConfig, tcfg: TrainConfig,
     def train_step(state, batch):
         grads, metrics = compute_grads(state["params"], batch)
         if tcfg.compression is not None:
-            grads, state["err"] = compress_with_feedback(
-                grads, state["err"], tcfg.compression)
+            # the new error goes into state["err"]'s leaves in place
+            grads, _ = compress_with_feedback(grads, state["err"],
+                                              tcfg.compression)
         _, _, opt_metrics = optim.apply_updates(
             state["params"], grads, state["opt"], tcfg.optim)
         metrics.update(opt_metrics)
@@ -157,6 +168,12 @@ def _metric(v: torch.Tensor) -> float:
 
 @dataclass
 class Trainer:
+    """The fault-tolerant train loop (see the module docstring). On CUDA
+    with no mesh each step after the first two is a replay of one CUDA graph
+    (``graphs.GraphedTrainStep``); with a ``mesh`` the step runs eagerly on
+    DTensors (its AdamW kernel on each rank's local shards), and on the CPU
+    eagerly."""
+
     cfg: ArchConfig
     tcfg: TrainConfig
     data: Iterator[dict]
@@ -175,7 +192,12 @@ class Trainer:
         if self.mesh is not None:
             self.device = self.mesh.device_type
         self.device = resolve_device(self.device)
-        self._step_fn = build_train_step(self.cfg, self.tcfg, self.rules)
+        step = build_train_step(self.cfg, self.tcfg, self.rules)
+        # jax.jit's counterpart: a CUDA graph of the step, replayed after its
+        # warm-up steps (graphs.GraphedTrainStep); a mesh step stays eager
+        self._step_fn = (GraphedTrainStep(step)
+                         if self.device.type == "cuda" and self.mesh is None
+                         else step)
         self._placements = (
             shd.tree_placements(self.mesh, train_state_axes(self.cfg,
                                                             self.tcfg),

@@ -30,6 +30,7 @@ import torch
 # use: the mesh step is held bit for bit to the mesh-less one
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+from repro_torch.kernels import adamw as adamw_mod
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm as gmm_mod
@@ -661,8 +662,9 @@ class _YieldingInt(int):
 
 
 @pytest.mark.parametrize("mod,kernel", [(fa, "wgmma"), (ssd_mod, None),
-                                        (dec, "mma"), (gmm_mod, "wgmma")],
-                         ids=["flash", "ssd", "decode", "gmm"])
+                                        (dec, "mma"), (gmm_mod, "wgmma"),
+                                        (adamw_mod, None)],
+                         ids=["flash", "ssd", "decode", "gmm", "adamw"])
 def test_launch_counters_lose_no_update_between_threads(mod, kernel):
     """More threads than cores raising one binding's counters, as serving
     engines on several threads do, through the function each wrapper calls
@@ -1280,3 +1282,352 @@ def test_a_failed_capture_raises_and_falls_back_to_nothing(cuda):
     assert torch.cuda.current_stream() == torch.cuda.default_stream()
     ok = graphs.GraphedForward(lambda p, x: x * p["w"])
     assert torch.equal(ok(params, t), t * 2) and len(ok.graphs) == 1
+
+
+# ---------------------------------------------------------------------------
+# the train step: the AdamW kernel and the graphed step (GraphedTrainStep)
+# ---------------------------------------------------------------------------
+
+#: leaf sizes the AdamW kernel is held to its plain version at: one element,
+#: either side of a block of 256 threads, and past a million
+ADAMW_SIZES = [1, 255, 257, 2 ** 20 + 3]
+
+
+def _adamw_inputs(n, dtype, seed=0):
+    """p (``dtype``), g, m, v and the device scalars of a mid-run step."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.randn(n, generator=g, device="cuda").to(dtype)
+    grad = 3 * torch.randn(n, generator=g, device="cuda")
+    m = 0.1 * torch.randn(n, generator=g, device="cuda")
+    v = 1e-2 * torch.rand(n, generator=g, device="cuda")
+    step = torch.tensor(7, dtype=torch.int32, device="cuda")
+    from repro_torch.training import OptimConfig, lr_at
+    cfg = OptimConfig(learning_rate=1e-2, warmup_steps=3, total_steps=20)
+    scalars = dict(lr=lr_at(cfg, step), b1c=1.0 - cfg.b1 ** step.float(),
+                   b2c=1.0 - cfg.b2 ** step.float())
+    return (p, grad, m, v), scalars, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", ADAMW_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clip", [False, True], ids=["noclip", "clip"])
+@pytest.mark.parametrize("decay", [0.0, 0.1])
+def test_adamw_kernel_equals_plain_bit_for_bit(cuda, n, dtype, clip, decay):
+    """One launch of ``csrc/adamw.cu`` against ``ref.adamw`` on copies of
+    the same inputs: p, m and v equal bit for bit, g untouched."""
+    leaf, scalars, cfg = _adamw_inputs(n, dtype)
+    scale = (torch.clamp(0.5 / (torch.linalg.vector_norm(leaf[1]) + 1e-9),
+                         max=1.0) if clip else None)
+    kw = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=decay)
+    want = [t.clone() for t in leaf]
+    got = [t.clone() for t in leaf]
+    before = adamw_mod.launches
+    ref.adamw(*want, **scalars, scale=scale, **kw)
+    ops.adamw(*got, **scalars, scale=scale, **kw)
+    torch.cuda.synchronize()
+    assert adamw_mod.launches == before + 1
+    assert torch.equal(got[1], leaf[1])
+    for name, a, b in zip("pgmv", got, want):
+        assert a.dtype == b.dtype, name
+        assert torch.equal(a, b), (name, float((a.float() - b.float())
+                                              .abs().max()))
+    assert not torch.equal(got[0], leaf[0])
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_refuses_what_it_does_not_take(cuda):
+    leaf, scalars, cfg = _adamw_inputs(64, torch.float32)
+    kw = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=0.0)
+    p, g, m, v = leaf
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw_mod.adamw(p.reshape(8, 8).t(), g.reshape(8, 8), m.reshape(8, 8),
+                        v.reshape(8, 8), *scalars.values(), None, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        adamw_mod.adamw(p, g[:32], m, v, *scalars.values(), None, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        adamw_mod.adamw(p, g, m.to(torch.bfloat16), v, *scalars.values(),
+                        None, **kw)
+    with pytest.raises(ValueError, match="one value"):
+        adamw_mod.adamw(p, g, m, v, g, scalars["b1c"], scalars["b2c"], None,
+                        **kw)
+
+
+def _graph_train_cfg(arch, dtype, accum=2, **opt):
+    from repro_torch.distributed import CompressionConfig
+    from repro_torch.training import OptimConfig, TrainConfig
+    opt = dict(dict(learning_rate=1e-2, warmup_steps=2, total_steps=20), **opt)
+    return (_train_cfg(arch, dtype),
+            TrainConfig(optim=OptimConfig(**opt), accum=accum,
+                        compression=CompressionConfig()))
+
+
+def _graph_batches(steps, seq=16, batch=4, seed=3):
+    from repro_torch.data import SyntheticLMData
+    data = SyntheticLMData(vocab_size=128, seq_len=seq, global_batch=batch,
+                           seed=seed)
+    return [data.batch(i) for i in range(steps)]
+
+
+def _eager_loop(cfg, tcfg, batches, seed=0):
+    """``build_train_step`` called in a loop on a fresh state of ``seed``:
+    the eager control of a graphed run. (metrics as ``Trainer`` keeps them,
+    final state)."""
+    from repro_torch.training import build_train_step, init_train_state
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(seed),
+                             cfg, tcfg, "cuda")
+    step = build_train_step(cfg, tcfg)
+    hist = []
+    for i, b in enumerate(batches):
+        _, m = step(state, {k: torch.as_tensor(v).cuda() for k, v in b.items()})
+        hist.append({k: float(v) for k, v in m.items()} | {"step": i + 1})
+    return hist, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "mamba2-130m"])
+def test_graphed_trainer_equals_the_eager_loop_bit_for_bit(cuda, arch, dtype):
+    """``Trainer`` on CUDA replays a ``GraphedTrainStep`` after its two
+    eager warm-up steps: six steps with accum 2 and int8 compression give
+    the eager loop's metrics and final state (params, m, v, step, err) bit
+    for bit under deterministic algorithms; one graph, and every step after
+    the capture launches the AdamW kernel through the replay."""
+    from repro_torch import graphs
+    from repro_torch.models import model as M
+    from repro_torch.training import Trainer
+    cfg, tcfg = _graph_train_cfg(arch, dtype)
+    batches = _graph_batches(6)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want_hist, want = _eager_loop(cfg, tcfg, batches)
+        t = Trainer(cfg=cfg, tcfg=tcfg, data=iter(batches), log_every=1000,
+                    device="cuda")
+        assert isinstance(t._step_fn, graphs.GraphedTrainStep)
+        t.init_or_resume(resume="never")
+        ptrs = [x.data_ptr() for x in M.tree_leaves(t.state)]
+        before = adamw_mod.launches
+        hist = t.run(6)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    n_leaves = len(M.tree_leaves(t.state["params"]))
+    assert adamw_mod.launches - before == 6 * n_leaves
+    assert len(t._step_fn.graphs) == 1
+    assert [x.data_ptr() for x in M.tree_leaves(t.state)] == ptrs
+    assert hist == want_hist
+    for a, b in zip(M.tree_leaves(t.state), M.tree_leaves(want)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graphed_train_step_captures_again_on_a_new_shape_or_state(cuda,
+                                                                   tmp_path):
+    """As ``jax.jit`` retraces: a new batch shape, and a state restored
+    from a checkpoint (new addresses), each warm up and capture a graph of
+    their own, and every step still equals the eager loop's bit for bit."""
+    from repro_torch import graphs
+    from repro_torch.distributed import CheckpointManager
+    from repro_torch.models import model as M
+    from repro_torch.training import build_train_step, init_train_state
+    cfg, tcfg = _graph_train_cfg("qwen1.5-4b", "float32")
+    short, long_ = _graph_batches(4), _graph_batches(4, seq=24, seed=4)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want_hist, want = _eager_loop(cfg, tcfg, short + long_)
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg, tcfg, "cuda")
+        step = graphs.GraphedTrainStep(build_train_step(cfg, tcfg))
+        hist = []
+        for i, b in enumerate(short + long_):
+            _, m = step(state, {k: torch.as_tensor(v).cuda()
+                                for k, v in b.items()})
+            hist.append({k: float(v) for k, v in m.items()} | {"step": i + 1})
+            if i == 3:
+                assert len(step.graphs) == 1
+        assert len(step.graphs) == 2 and hist == want_hist
+        for a, b in zip(M.tree_leaves(state), M.tree_leaves(want)):
+            assert torch.equal(a, b)
+        mgr = CheckpointManager(str(tmp_path))
+        mgr.save(8, state)
+        _, restored, _ = mgr.restore(device="cuda")
+        more = _graph_batches(3, seed=9)
+        for b in more:
+            bt = {k: torch.as_tensor(v).cuda() for k, v in b.items()}
+            _, mr = step(restored, bt)
+            _, mw = build_train_step(cfg, tcfg)(want, bt)
+            assert {k: float(v) for k, v in mr.items()} == \
+                {k: float(v) for k, v in mw.items()}
+        assert len(step.graphs) == 3
+        for a, b in zip(M.tree_leaves(restored), M.tree_leaves(want)):
+            assert torch.equal(a, b)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.cuda
+def test_graphed_train_step_replays_add_the_capture_s_launches(cuda):
+    """The capture records one AdamW launch a params leaf and each replay
+    adds it to the counters; the forward kernels launch nothing."""
+    from repro_torch import graphs
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.training import build_train_step, init_train_state
+    cfg, tcfg = _graph_train_cfg("mamba2-130m", "bfloat16")
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, tcfg, "cuda")
+    n_leaves = len(M.tree_leaves(state["params"]))
+    step = graphs.GraphedTrainStep(build_train_step(cfg, tcfg))
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
+               for b in _graph_batches(6)]
+    before = build.counts()
+    for b in batches[:graphs.WARMUP_CALLS + 1]:
+        step(state, b)
+    (graph,) = step.graphs.values()
+    assert graph.launches == {"adamw": (n_leaves, {})}
+    mid = build.counts()
+    for b in batches[graphs.WARMUP_CALLS + 1:]:
+        step(state, b)
+    after = build.counts()
+    replays = len(batches) - graphs.WARMUP_CALLS
+    assert mid["adamw"][0] - before["adamw"][0] == \
+        (graphs.WARMUP_CALLS + 1) * n_leaves
+    assert after["adamw"][0] - before["adamw"][0] == \
+        (graphs.WARMUP_CALLS + replays) * n_leaves
+    for name in ("flash_attention", "ssd", "decode_attention", "gmm"):
+        assert after[name] == before[name]
+
+
+@pytest.mark.cuda
+def test_graphed_lr_schedule_crosses_the_capture_like_the_eager_run(cuda):
+    """The learning rate is computed on the device inside the graph and
+    read by the kernel from there: over a warm-up of 4 steps and a cosine
+    decay, every step's lr (the eager warm-up steps, the capture's replay
+    and the later replays) equals the eager run's, and no two steps share
+    one."""
+    from repro_torch.training import Trainer
+    cfg, tcfg = _graph_train_cfg("qwen1.5-4b", "float32", accum=1,
+                                 warmup_steps=4, total_steps=8)
+    batches = _graph_batches(7)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want_hist, _ = _eager_loop(cfg, tcfg, batches)
+        t = Trainer(cfg=cfg, tcfg=tcfg, data=iter(batches), log_every=1000,
+                    device="cuda")
+        t.init_or_resume(resume="never")
+        hist = t.run(7)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    lrs = [m["lr"] for m in hist]
+    assert lrs == [m["lr"] for m in want_hist]
+    assert len(set(lrs)) == len(lrs)
+    assert hist == want_hist
+
+
+@pytest.mark.cuda
+def test_a_failed_train_step_capture_raises_and_restores_the_stream(cuda):
+    """A step that synchronises the device cannot be captured: its two
+    warm-up steps run, the third call raises, nothing is kept, the caller's
+    stream is current again, and nothing fell back to the eager step."""
+    from repro_torch import graphs
+    from repro_torch.training import build_train_step, init_train_state
+    cfg, tcfg = _graph_train_cfg("qwen1.5-4b", "float32")
+    eager = build_train_step(cfg, tcfg)
+    calls = []
+
+    def bad(state, batch):
+        calls.append(1)
+        torch.cuda.synchronize()
+        return eager(state, batch)
+
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, tcfg, "cuda")
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in _graph_batches(1)[0].items()}
+    step = graphs.GraphedTrainStep(bad)
+    for _ in range(graphs.WARMUP_CALLS):
+        step(state, batch)
+    done = int(state["opt"]["step"])
+    with pytest.raises(RuntimeError):
+        step(state, batch)
+    assert len(calls) == graphs.WARMUP_CALLS + 1 and step.graphs == {}
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    assert int(state["opt"]["step"]) == done == graphs.WARMUP_CALLS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_train_step_makes_no_host_sync(cuda, arch):
+    """One eager step of each architecture at smoke width (accum 2, int8
+    compression, deterministic algorithms, whose embedding backward sorts)
+    under ``torch.cuda.set_sync_debug_mode("error")``: a step that read a
+    value back to the host could not be captured."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.training import build_train_step, init_train_state
+    cfg = dataclasses.replace(smoke_config(arch), vocab_size=512,
+                              dtype="bfloat16")
+    _, tcfg = _graph_train_cfg(arch, "bfloat16")
+    rng = np.random.default_rng(5)
+    t = rng.integers(0, 512, (4, 33)).astype(np.int32)
+    b = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    if cfg.frontend:
+        b["frontend"] = rng.standard_normal(
+            (4, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, tcfg, "cuda")
+    step = build_train_step(cfg, tcfg)
+    step(state, batch)                      # lazy set-up outside the check
+    torch.cuda.synchronize()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_mesh_trainer_with_the_kernel_on_shards_equals_the_graphed_one(cuda):
+    """Five float32 steps (accum 2, int8 compression) through ``Trainer`` on
+    a one-device CUDA mesh, whose AdamW kernel runs on each rank's local
+    shards, equal the mesh-less ``Trainer``'s, whose steps after the second
+    replay a CUDA graph, bit for bit under deterministic algorithms; both
+    launch the kernel once a leaf a step."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import graphs
+    from repro_torch.distributed.sharding import full_tree
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import model as M
+    from repro_torch.training import Trainer
+    cfg, tcfg = _graph_train_cfg("qwen1.5-4b", "float32")
+    batches = _graph_batches(5)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        runs = []
+        for m in (None, mesh):
+            t = Trainer(cfg=cfg, tcfg=tcfg, data=iter(batches), mesh=m,
+                        rules=rules_for(cfg, mesh) if m is not None else None,
+                        log_every=1000, device="cuda")
+            assert isinstance(t._step_fn, graphs.GraphedTrainStep) == (
+                m is None)
+            t.init_or_resume(resume="never")
+            before = adamw_mod.launches
+            hist = t.run(5)
+            runs.append((hist, full_tree(t.state),
+                         adamw_mod.launches - before))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    n_leaves = len(M.tree_leaves(runs[0][1]["params"]))
+    assert runs[0][2] == runs[1][2] == 5 * n_leaves
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(M.tree_leaves(runs[0][1]), M.tree_leaves(runs[1][1])):
+        assert torch.equal(a, b)

@@ -30,6 +30,7 @@ from repro_torch import configs as tconfigs
 from repro_torch import graphs
 from repro_torch.convert import from_jax_params
 from repro_torch.kernels import build
+from repro_torch.kernels import adamw as adamw_mod
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm as gmm_mod
@@ -186,8 +187,9 @@ def test_graphed_forward_runs_the_eager_function_on_cpu_tensors():
 
 @pytest.mark.parametrize("mod,name,kernel", [
     (fa, "flash_attention", "wgmma"), (ssd_mod, "ssd", None),
-    (dec, "decode_attention", "mma"), (gmm_mod, "gmm", "wgmma_splitk")],
-    ids=["flash", "ssd", "decode", "gmm"])
+    (dec, "decode_attention", "mma"), (gmm_mod, "gmm", "wgmma_splitk"),
+    (adamw_mod, "adamw", None)],
+    ids=["flash", "ssd", "decode", "gmm", "adamw"])
 def test_recording_holds_a_capture_s_launches_until_added(monkeypatch, mod,
                                                          name, kernel):
     """A binding's ``_count`` inside ``build.recording`` (a capture) leaves

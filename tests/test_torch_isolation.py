@@ -26,7 +26,7 @@ def _modules():
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = _modules()
     assert {"repro_torch.kernels.ops", "repro_torch.launch.serve",
-            "repro_torch.graphs"} <= set(mods)
+            "repro_torch.graphs", "repro_torch.kernels.adamw"} <= set(mods)
     assert {"repro_torch.scenarios.arrivals",
             "repro_torch.scenarios.trace"} <= set(mods)
     assert {"repro_torch.training.train", "repro_torch.distributed.checkpoint",

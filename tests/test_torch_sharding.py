@@ -455,11 +455,13 @@ def test_sharded_compression_equals_the_unsharded(sharded_runs, arch, mesh):
     from repro_torch.distributed.compression import (CompressionConfig,
                                                      compress_with_feedback)
     tag = f"{arch}@{mesh[0]}x{mesh[1]}"
-    grads, err = W.grads_and_err(W.smoke(arch))
-    n = len(TM.tree_leaves(grads))
+    n = len(TM.tree_leaves(W.grads_and_err(W.smoke(arch))[0]))
     assert 0 < sharded_runs[f"{tag}/b8/local"] <= n
     assert sharded_runs[f"{tag}/b256/local"] < n
     for block in W.BLOCKS:
+        # fresh residuals each block, as the worker draws them: the call
+        # writes the new error into ``err`` in place
+        grads, err = W.grads_and_err(W.smoke(arch))
         q, e = compress_with_feedback(grads, err,
                                       CompressionConfig(block=block))
         for i, (a, c) in enumerate(zip(TM.tree_leaves(q),
