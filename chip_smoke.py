@@ -160,13 +160,19 @@ Phases, each of which raises (exit code != 0) on any failure:
    phase 10's uninterrupted run bit for bit and its final state to phase
    10's last checkpoint, and its params, gathered with ``full_tensor()``,
    serving phase 10's 1024-token prefill through the SSD kernel with logits
-   equal to phase 10's bit for bit; then the dry-run over all 33 cells,
-   counted once each on meta tensors and reported for the (16, 16) and
-   (2, 16, 16) meshes (compute and memory terms, the dominant one, the
-   argument GB per device), with the phase's seconds. No train or mesh run
-   launches a forward kernel (the mesh step's AdamW kernel runs on each
-   rank's local shards, the mesh-less step is graphed); only the restored
-   prefill adds SSD launches;
+   equal to phase 10's bit for bit; gemma2-2b at its published width cut
+   to 4 layers decodes one token on the mesh (the torch path, a 1024-row
+   cache) with logits and cache equal bit for bit to the mesh-less step's;
+   then, with the NCCL group destroyed, the dry-run in a process of its own
+   (``python -m repro_torch.launch.dryrun --jobs 8``): each of the 33
+   cells' DTensor step counted as rank 0 of the (16, 16) and of the
+   (2, 16, 16) mesh over a fake process group, one line a cell and mesh
+   (compute, memory and collective terms, the dominant one, argument GB
+   per device, collective bytes by family), with its seconds; the phase
+   fails if any of the 66 counts fails. No train or mesh run launches a
+   forward kernel (the mesh step's AdamW kernel runs on each rank's local
+   shards, the mesh-less step is graphed); only the restored prefill adds
+   SSD launches;
 12. the fleet, run right after phase 5 on its handles (detector and
    verifier at smoke width, context at published width cut to 4 layers,
    kws whole, 1024-token prompts): ``repro_torch.launch.serve_fleet``'s
@@ -243,6 +249,7 @@ and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -3383,13 +3390,20 @@ def mesh_train(torch, card: str, mesh, phase10_ms: float) -> None:
     if real != res["flops"]:
         raise AssertionError(f"{arch}: dry-run FLOPs {res['flops']}, "
                              f"FlopCounterMode on the card {real}")
+    if res["flops_per_dev"] != real or \
+            res["collective_bytes_per_dev"]["total"] != 0:
+        raise AssertionError(f"{arch}: the dry-run's rank-0 count on the "
+                             f"one-device mesh: FLOPs {res['flops_per_dev']} "
+                             f"(the card's {real}), collective bytes "
+                             f"{res['collective_bytes_per_dev']}")
     log(f"[mesh] {arch}: dry-run at mesh {res['mesh']} vs the card: argument "
         f"bytes {res['memory']['argument_bytes']} = the Trainer's state "
         f"{have} + the batch {batch_bytes}; counted FLOPs of a step "
-        f"{res['flops']} = FlopCounterMode's count of step {steps + 1} on "
-        f"the card {real}; model_flops / counted (useful_flops_ratio) "
-        f"{res['model_flops'] / real}; the dry-run's terms compute "
-        f"{res['terms_s']['compute_s'] * 1e3} ms, memory "
+        f"{res['flops']} (global) and {res['flops_per_dev']} (rank 0 of the "
+        f"mesh) = FlopCounterMode's count of step {steps + 1} on the card "
+        f"{real}, no collective bytes; model_flops / counted "
+        f"(useful_flops_ratio) {res['useful_flops_ratio']}; the dry-run's "
+        f"terms compute {res['terms_s']['compute_s'] * 1e3} ms, memory "
         f"{res['terms_s']['memory_s'] * 1e3} ms against step ms {mesh_ms}")
     del tr
     torch.cuda.empty_cache()
@@ -3490,30 +3504,117 @@ def mesh_restart(torch, mesh, handoff: dict) -> dict:
     return launches
 
 
-def dryrun_phase() -> None:
-    """Every applicable (arch, shape) cell counted once on meta tensors and
-    reported for the (16, 16) and (2, 16, 16) meshes: one line a cell and
-    mesh, then the seconds it took."""
-    from repro_torch.configs import ARCH_IDS, SHAPES
-    from repro_torch.launch import dryrun as D
+#: a 4-layer cut of gemma2-2b's published width decodes one token on the
+#: one-device mesh: (arch, layers, batch, cache rows, write positions)
+MESH_DECODE = ("gemma2-2b", 4, 2, 1024, (700, 1023))
+#: worker processes of the dry-run (the card's host has 8 cores)
+DRYRUN_JOBS = 8
 
+
+def mesh_decode(torch, mesh) -> None:
+    """One ``decode_step`` of gemma2-2b (published width, 4 layers, bf16,
+    the torch path: the kernels take no DTensor) on the one-device mesh,
+    its inputs placed by ``rules_for``'s table for a decode cell: logits
+    and every cache leaf equal bit for bit to the mesh-less step's on the
+    same inputs (a cache of random rows, each sequence writing at its own
+    position)."""
+    import functools
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.convert import to_compute_dtype
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import model as M
+
+    arch, layers, batch, rows, at = MESH_DECODE
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    rules = rules_for(cfg, mesh, ShapeCell("decode", rows, batch, "decode"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = to_compute_dtype(M.init_params(gen, cfg, "cuda"),
+                              M.compute_dtype(cfg))
+    cache0 = M.tree_map(
+        lambda c: torch.randn(c.shape, generator=gen, device="cuda",
+                              dtype=torch.float32).to(c.dtype),
+        M.init_cache(cfg, batch, rows, device="cuda"))
+    tokens = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    pos = torch.tensor(at, dtype=torch.int32, device="cuda")
+
+    def step(params, cache, tokens, pos, rules=None):
+        return M.decode_step(params, cfg, tokens, cache, pos,
+                             attn_impl="torch", moe_impl="einsum",
+                             constrain=functools.partial(shd.constrain,
+                                                         rules=rules))[0]
+    with deterministic(), torch.no_grad():
+        reset_kernel_counters()
+        want_cache = M.tree_map(torch.clone, cache0)
+        want = step(params, want_cache, tokens, pos)
+        on = [shd.distribute_tree(M.tree_map(torch.clone, t), mesh,
+                                  shd.tree_placements(mesh, axes, rules))
+              for t, axes in ((params, M.param_axes(cfg)),
+                              (cache0, M.cache_axes(cfg)))]
+        tok, p = (distribute_tensor(t, mesh, shd.placements_for(
+            mesh, shd.spec_for(lg, rules)))
+            for t, lg in ((tokens, ("batch", None)), (pos, ("batch",))))
+        got = step(on[0], on[1], tok, p, rules).full_tensor()
+        launches = kernel_counts()
+    if not torch.equal(got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        raise AssertionError(f"{arch}: mesh decode logits differ from the "
+                             f"mesh-less step's (max abs {err})")
+    for (n, a), (_, b) in zip(flat_tree(shd.full_tree(on[1])),
+                              flat_tree(want_cache)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{arch}: mesh decode cache {n} differs "
+                                 f"from the mesh-less step's")
+    if any(launches.values()):
+        raise AssertionError(f"{arch} mesh decode launched kernels "
+                             f"{launches}")
+    log(f"[mesh] {arch} (published width, {layers} layers, bf16) decodes "
+        f"one token on the one-device DeviceMesh {tuple(mesh.shape)}, batch "
+        f"{batch}, a {rows}-row cache written at {list(at)}: logits "
+        f"{tuple(got.shape)} and all {len(flat_tree(want_cache))} cache "
+        f"leaves equal the mesh-less step's bit for bit; no kernel launched")
+    del params, cache0, want_cache, on
+    torch.cuda.empty_cache()
+
+
+def dryrun_phase() -> None:
+    """Every applicable (arch, shape) cell's DTensor step counted as rank 0
+    of the (16, 16) and of the (2, 16, 16) mesh, by ``python -m
+    repro_torch.launch.dryrun`` in a process of its own (its fake process
+    groups cannot sit beside this process's NCCL group), over
+    ``DRYRUN_JOBS`` workers: its lines, one a cell and mesh, then the
+    seconds it took. Raises unless it exits 0 with all 66 counted."""
     t0 = time.perf_counter()
-    results = D.run_cells(list(ARCH_IDS), list(SHAPES), ["single", "multipod"],
-                          out_dir=str(ROOT / "build" / "dryrun_torch"))
-    bad = [r for r in results if r.get("status") != "ok"]
-    if bad or len(results) != 2 * 33:
-        raise AssertionError(f"dry-run: {len(results)} results, failed "
-                             f"{[(r['arch'], r['shape'], r['mesh']) for r in bad]}")
-    over = [(r["arch"], r["shape"], r["mesh"]) for r in results
-            if r["over_hbm"]]
-    log(f"[dryrun] 33 cells x 2 meshes counted on meta tensors in "
-        f"{time.perf_counter() - t0:.1f} s (one count a cell); argument "
-        f"bytes over the card's 80 GB: {over or 'none'}")
+    out_dir = ROOT / "build" / "dryrun_torch"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--jobs",
+         str(DRYRUN_JOBS), "--out", str(out_dir)],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in run.stdout.splitlines()
+             if ln.startswith("[dryrun]") and "SKIP" not in ln]
+    for ln in lines:
+        log(ln)
+    if run.returncode != 0 or "66/66 cells counted OK" not in run.stdout:
+        raise AssertionError(f"dry-run exited {run.returncode}: "
+                             f"{run.stderr[-3000:]}")
+    results = [json.loads(p.read_text()) for p in out_dir.glob("*.json")]
+    over = sorted((r["arch"], r["shape"], r["mesh"]) for r in results
+                  if r["over_hbm"])
+    dominant = collections.Counter(r["dominant"] for r in results)
+    log(f"[dryrun] 33 cells x 2 meshes counted as rank 0 of each mesh on "
+        f"meta tensors in {seconds:.1f} s ({DRYRUN_JOBS} worker processes); "
+        f"dominant terms {dict(dominant)}; argument bytes over the card's "
+        f"80 GB: {over or 'none'}")
 
 
 def mesh_phase(torch, card: str, phase10_ms: float, handoff: dict) -> dict:
     """Phase 11 under an NCCL process group of one rank (a ``HashStore``),
-    destroyed at the end. Returns the mesh-restored prefill's launches."""
+    destroyed before the dry-run. Returns the mesh-restored prefill's
+    launches."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -3524,9 +3625,10 @@ def mesh_phase(torch, card: str, phase10_ms: float, handoff: dict) -> dict:
                                 mesh_dim_names=("data", "model"))
         mesh_train(torch, card, mesh, phase10_ms)
         launches = mesh_restart(torch, mesh, handoff)
-        dryrun_phase()
+        mesh_decode(torch, mesh)
     finally:
         dist.destroy_process_group()
+    dryrun_phase()
     return launches
 
 

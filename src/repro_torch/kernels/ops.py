@@ -12,7 +12,11 @@ pass: on CUDA, an input that requires grad under grad mode raises
 (``build.check_inputs``) where the plain version would differentiate, and
 so does a DTensor (``build.DTensorInputError``): a kernel reads raw
 pointers, and a shard is not the whole tensor. Meta tensors (the dry-run's)
-take the plain version, which computes shapes only.
+take the plain version, which computes shapes only; the AdamW update on
+meta tensors is instead one op, ``torch.ops.repro_torch.adamw`` (its only
+kernel is for meta tensors, and does nothing), so that the dry-run counts
+it as the card runs it: one pass over p, g, m and v, on each rank's
+shards.
 """
 from __future__ import annotations
 
@@ -28,6 +32,14 @@ from . import flash_attention as _fa
 from . import gmm as _gmm
 from . import ref
 from . import ssd as _ssd
+
+
+#: the AdamW kernel's launch as one op on meta tensors: p, m and v written
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("adamw(Tensor(a!) p, Tensor g, Tensor(b!) m, Tensor(c!) v, "
+            "Tensor lr, Tensor b1c, Tensor b2c, Tensor? scale, float b1, "
+            "float b2, float eps, float weight_decay) -> ()")
+_LIB.impl("adamw", lambda *args: None, "Meta")
 
 
 def _pad_seq(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
@@ -171,18 +183,20 @@ def adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
           scale: Optional[torch.Tensor], b1: float, b2: float, eps: float,
           weight_decay: float) -> None:
     """One leaf's AdamW update, in place on p, m and v (see ``ref.adamw``):
-    the kernel on CUDA tensors, the plain version on CPU or meta tensors.
-    On a mesh (DTensors) the kernel runs on each rank's local shards of p,
-    m and v (placed alike), with g redistributed to p's placements, and
-    reads each rank's copy of the scalars; the plain version runs on the
-    DTensors."""
-    scalars = (lr, b1c, b2c) + ((scale,) if scale is not None else ())
-    if not _on_cuda(p, g, m, v, *scalars):
-        ref.adamw(p, g, m, v, lr, b1c, b2c, scale, b1=b1, b2=b2, eps=eps,
-                  weight_decay=weight_decay)
-        return
-    # a gradient from autograd may be strided; the kernel reads it flat
-    _adamw.adamw(_shard(p, p, "p"), _shard(g, p, "g", move=True).contiguous(),
-                 _shard(m, p, "m"), _shard(v, p, "v"), _whole(lr),
-                 _whole(b1c), _whole(b2c), _whole(scale), b1=b1, b2=b2,
-                 eps=eps, weight_decay=weight_decay)
+    the kernel on CUDA tensors, the plain version on CPU tensors, and on
+    meta tensors (the dry-run) one ``repro_torch::adamw`` op, as the
+    kernel's launch. On a mesh (DTensors) each runs on each rank's local
+    shards of p, m and v (placed alike), with g redistributed to p's
+    placements, and reads each rank's copy of the scalars."""
+    p_, m_, v_ = (_shard(x, p, n) for x, n in ((p, "p"), (m, "m"),
+                                                (v, "v")))
+    g_ = _shard(g, p, "g", move=True)
+    s_ = [_whole(x) for x in (lr, b1c, b2c, scale)]
+    kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    if p_.device.type == "meta":
+        torch.ops.repro_torch.adamw(p_, g_.contiguous(), m_, v_, *s_, **kw)
+    elif _on_cuda(p_, g_, m_, v_, *(x for x in s_ if x is not None)):
+        # a gradient from autograd may be strided; the kernel reads it flat
+        _adamw.adamw(p_, g_.contiguous(), m_, v_, *s_, **kw)
+    else:
+        ref.adamw(p_, g_, m_, v_, *s_, **kw)

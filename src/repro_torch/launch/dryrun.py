@@ -3,44 +3,63 @@ roofline terms on a production mesh, with no device (port of
 ``repro/launch/dryrun.py``).
 
 The reference lowers and compiles each cell's jitted SPMD step for 256 and
-512 placeholder devices and reads XLA's memory and cost analyses. Eager
-PyTorch has no partitioned program to compile, so here ``count_cell`` runs
-the cell's step once on ``meta`` tensors (shapes and dtypes, no data, no
-card) and counts it:
+512 placeholder devices and reads XLA's cost and memory analyses and the
+collectives of the optimized HLO. Eager PyTorch has no partitioned program
+to compile; here the partitioned program is the DTensor step itself, run
+once as rank 0 of the production mesh (``count_cell``):
 
-* FLOPs with ``torch.utils.flop_counter.FlopCounterMode`` (matmuls,
-  attention and convolutions, at 2 per multiply-add);
-* bytes touched by summing every aten op's input and output bytes under a
-  ``TorchDispatchMode`` (views and allocations excluded: they move no
-  data). That is the eager program's traffic, every op a round trip to
-  memory, unfused: an upper bound on what a fused program moves.
+* the mesh is a ``DeviceMesh`` of device type ``"cuda"`` over a fake
+  process group of ``prod(mesh shape)`` ranks (``fake_mesh``), which the
+  dry-run sets up and destroys itself: its collectives return without
+  moving data, and no card is needed (on a ``"cpu"`` mesh DTensor would
+  replace every all-to-all by an all-gather and a chunk, which the card's
+  NCCL does not);
+* every input is a DTensor whose local tensor is a meta tensor of rank 0's
+  shard (placed by ``train_state_axes`` / ``param_axes`` / ``cache_axes``
+  and ``rules_for``), and the step is the cell's train step
+  (``build_train_step``), ``prefill`` or ``decode_step`` with
+  ``constrain`` bound to the same rules;
+* ``LocalTally`` counts what rank 0 runs: the FLOPs (FlopCounterMode's
+  table, at 2 per multiply-add) and the bytes touched (every op's input
+  and output bytes, views and allocations excluded) of the ops on its local
+  tensors only (a DTensor op is left to DTensor, which runs it as local
+  ops and collectives on the shards), and the collectives by family under
+  the reference's HLO names and by mesh axis, each as one traversal of its
+  result bytes (the reference's approximation in ``collective_bytes``).
 
-The step is the train step of ``build_train_step`` (forward, backward,
-AdamW) for ``train`` cells, and ``prefill`` or ``decode_step`` for serving
-cells, all on the torch path with ``moe_impl="einsum"``: the grouped
+So ``flops_per_dev``, ``bytes_per_dev`` and ``collective_bytes_per_dev``
+are rank 0's own: imbalance and work replicated over the mesh show, and
+``useful_flops_ratio`` is the reference's ``model_flops / (flops_per_dev *
+n_devices)``. ``flops`` and ``bytes`` stay the global count of the
+unsharded step (``tally_cell``, plain meta tensors, no mesh). The bytes are
+the eager program's traffic, every op a round trip to memory, unfused; the
+counts see neither XLA's fusion nor its rematerialisation (the port has
+none: a train step counts no recompute), nor a collective that a compiler
+would overlap with compute or elide.
+
+The step runs on the torch path with ``moe_impl="einsum"``: the grouped
 matmul's plain version reads the group sizes to the host, which a meta
-tensor cannot give, and the CUDA kernels take no meta tensor. The port has
-no rematerialisation, so the train step counts no recompute.
+tensor cannot give, and the CUDA kernels take no meta tensor. The AdamW
+update is counted as the card runs it: one op a leaf (``kernels.ops``'
+``repro_torch::adamw`` on meta tensors), reading p, g, m and v and writing
+p, m and v once, on rank 0's shard.
 
-Per device, for a mesh:
-* argument bytes are exact: each input leaf's bytes (the train state and
-  the batch, or the params, the tokens and the cache) over the product of
-  the mesh-axis sizes its spec shards it on, summed (a dimension that does
-  not divide holds its largest shard);
-* FLOPs and bytes touched are the counted totals over the device count,
-  an even split: eager torch has no partitioned program to count, so any
-  imbalance or replicated work between devices is not seen.
-There is no collective term: the reference parses collectives out of the
-optimized HLO (``collective_bytes``), and the eager step has no such
-program; no number stands in for it.
+Argument bytes per device are exact: each input leaf's bytes over the
+product of the mesh-axis sizes its spec shards it on, summed (a dimension
+that does not divide holds its largest shard).
 
 The roofline denominators are NVIDIA's published H100 SXM figures (data
 sheet, dense): 989 TFLOP/s bf16 on the tensor cores and 3.35 TB/s of HBM3
-bandwidth, with 80 GB of HBM; a cell whose per-device argument bytes exceed
-80 GB is flagged (``over_hbm``).
+bandwidth, with 80 GB of HBM (a cell whose per-device argument bytes exceed
+80 GB is flagged, ``over_hbm``). The collective term divides the bytes by
+50 GB/s a direction per card: one ConnectX-7 NDR 400 Gb/s InfiniBand port
+per GPU, as in a DGX H100. Both production mesh axes span more than one
+8-card NVLink domain (``model`` = 16 at stride 1 spans two nodes), so the
+slowest hop of every collective is InfiniBand; NVLink 4's 450 GB/s a
+direction (``NVLINK_BW``) is quoted, not used.
 
 Usage:
-    PYTHONPATH=src python -m repro_torch.launch.dryrun                 # all cells
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --jobs 8        # all cells
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b \\
         --shape train_4k --mesh single                                 # one cell
 
@@ -50,8 +69,12 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import functools
 import json
+import logging
 import math
+import multiprocessing
 import os
 import time
 import traceback
@@ -59,9 +82,15 @@ from dataclasses import dataclass, field
 from typing import Any, Optional, Union
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 from ..configs import (ARCH_IDS, SHAPES, ArchConfig, ShapeCell,
                        cell_applicable, get_config)
@@ -71,12 +100,14 @@ from ..models import model as M
 from ..models.layers import META
 from ..training import OptimConfig, TrainConfig, build_train_step
 from ..training.train import init_train_state, train_state_axes
-from .mesh import make_production_mesh, rules_for
+from .mesh import MeshShape, make_production_mesh, rules_for
 
 # NVIDIA H100 SXM data sheet (dense): the roofline denominators
 PEAK_FLOPS = 989e12          # bf16 FLOP/s per card (tensor cores)
 HBM_BW = 3.35e12             # bytes/s per card (HBM3)
 HBM_BYTES = 80e9             # bytes of HBM per card
+LINK_BW = 50e9               # bytes/s a direction per card: one NDR IB port
+NVLINK_BW = 450e9            # NVLink 4 a direction per card (not used)
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "build", "dryrun_torch")
@@ -86,6 +117,26 @@ _ATEN = torch.ops.aten
 _NO_TRAFFIC = {_ATEN.empty.memory_format, _ATEN.empty_strided.default,
                _ATEN.empty_like.default, _ATEN.detach.default,
                _ATEN.lift_fresh.default, _ATEN.alias.default}
+#: the reference's collective families (HLO op names)
+FAMILIES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+            "collective-permute")
+#: namespaces of the collective ops DTensor issues
+_COMM_NAMESPACES = {"_c10d_functional", "_c10d_functional_autograd", "c10d",
+                    "_dtensor"}
+#: each collective op (by overload packet name) -> its family
+_FAMILY_OF = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+}
+#: ops of those namespaces that move no data between ranks
+_NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
 
 
 # ---------------------------------------------------------------------------
@@ -101,55 +152,162 @@ def _tensors(tree) -> list:
     return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
 
 
-class ByteTally(TorchDispatchMode):
-    """Bytes each aten op reads and writes (its tensor inputs and outputs,
-    counted once each per op), in total, by op and by (shape, op)."""
+def _group_name(func, args, kwargs) -> str:
+    if "group_name" in kwargs:
+        return kwargs["group_name"]
+    names = [a.name for a in func._schema.arguments]
+    return args[names.index("group_name")]
+
+
+class LocalTally(TorchDispatchMode):
+    """What this rank runs on its own tensors: the FLOPs
+    (``FlopCounterMode``'s table) and bytes (each op's tensor inputs and
+    outputs, once each per op; an op that returns nothing writes the
+    arguments it mutates) of every op on plain tensors, in total, by op and
+    by (shape, op); and the result bytes of every collective, by family
+    and by the group it runs on. An op on DTensors is returned to DTensor
+    (``NotImplemented``), which runs it as local ops and collectives that
+    come back here. On plain tensors that is every op."""
 
     def __init__(self):
         super().__init__()
+        self.flops = 0
         self.total = 0
         self.by_op: collections.Counter = collections.Counter()
         self.count_op: collections.Counter = collections.Counter()
         self.by_shape: collections.Counter = collections.Counter()
+        self.collectives: collections.Counter = collections.Counter()
+        self.by_group: collections.Counter = collections.Counter()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if any(issubclass(t, FakeTensor) for t in types):
+            # DTensor's sharding propagation inferring shapes: no work
+            return func(*args, **kwargs)
+        if func.namespace in _COMM_NAMESPACES:
+            return self._collective(func, args, kwargs)
+        packet = func.overloadpacket
+        if packet not in flop_registry and \
+                func is not torch.ops.prim.device.default:
+            with self:
+                r = func.decompose(*args, **kwargs)
+            if r is not NotImplemented:
+                return r
+        out = func(*args, **kwargs)
+        if packet in flop_registry:
+            self.flops += int(flop_registry[packet](*args, **kwargs,
+                                                    out_val=out))
         if func.is_view or func in _NO_TRAFFIC:
             return out
-        ins = sum(_nbytes(t) for t in _tensors((args, kwargs or {})))
         outs = _tensors(out)
-        b = ins + sum(_nbytes(t) for t in outs)
-        name = func.overloadpacket.__name__
+        written = outs or [a for a, s in zip(args, func._schema.arguments)
+                           if isinstance(a, torch.Tensor)
+                           and s.alias_info is not None
+                           and s.alias_info.is_write]
+        b = sum(_nbytes(t) for t in _tensors((args, kwargs)) + written)
+        name = packet.__name__
         self.total += b
         self.by_op[name] += b
         self.count_op[name] += 1
-        if outs:
-            o = outs[0]
+        if written:
+            o = written[0]
             dt = str(o.dtype).replace("torch.", "")
             self.by_shape[f"{dt}{list(o.shape)} {name}"] += b
+        return out
+
+    def _collective(self, func, args, kwargs):
+        out = func(*args, **kwargs)
+        name = func.overloadpacket.__name__
+        if name in _NOT_COLLECTIVES:
+            return out
+        if name not in _FAMILY_OF:
+            raise NotImplementedError(f"LocalTally: collective {func} has "
+                                      f"no family")
+        b = sum(_nbytes(t) for t in _tensors(out))
+        self.collectives[_FAMILY_OF[name]] += b
+        self.by_group[_group_name(func, args, kwargs)] += b
         return out
 
 
 @dataclass
 class Tally:
-    """What one run of a cell's step counted."""
+    """What one run of a cell's step counted (on one rank)."""
     flops: int
     bytes: int
     by_op: dict = field(default_factory=dict)
     count_op: dict = field(default_factory=dict)
     by_shape: dict = field(default_factory=dict)
+    collectives: dict = field(default_factory=dict)
+    by_group: dict = field(default_factory=dict)
     seconds: float = 0.0
+
+    def collective_bytes(self) -> dict:
+        """Bytes by family under the reference's keys, and their total."""
+        out = {f: float(self.collectives.get(f, 0)) for f in FAMILIES}
+        out["total"] = sum(out.values())
+        return out
 
 
 def count(fn, *args) -> Tally:
-    """Run ``fn(*args)`` under the FLOP counter and the byte tally."""
+    """Run ``fn(*args)`` under ``LocalTally``."""
     t0 = time.perf_counter()
-    with FlopCounterMode(display=False) as fc, ByteTally() as bt:
+    with LocalTally() as lt:
         fn(*args)
-    return Tally(flops=int(fc.get_total_flops()), bytes=bt.total,
-                      by_op=dict(bt.by_op), count_op=dict(bt.count_op),
-                      by_shape=dict(bt.by_shape),
-                      seconds=time.perf_counter() - t0)
+    return Tally(flops=lt.flops, bytes=lt.total, by_op=dict(lt.by_op),
+                 count_op=dict(lt.count_op), by_shape=dict(lt.by_shape),
+                 collectives=dict(lt.collectives),
+                 by_group=dict(lt.by_group),
+                 seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# a production mesh on a fake process group
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def fake_mesh(mesh: MeshShape, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``mesh``'s shape and axis names as seen by rank 0
+    of a fake process group of ``prod(shape)`` ranks (no communication, no
+    device: its collectives return without writing), made the default
+    group here and destroyed on exit. Refuses to run beside another default
+    group. ``device_type`` "cuda" is the card's; on a "cpu" mesh DTensor
+    runs each all-to-all as gloo's all-gather and a chunk (as on two real
+    gloo ranks, which the tests count it against)."""
+    # registers the "fake" backend (it ships with PyTorch)
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a default process group exists; "
+                           "count in a process of its own")
+    n = math.prod(mesh.shape)
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=n)
+    # DTensor warns of every redistribution it runs as several collectives
+    log = logging.getLogger("torch.distributed.tensor._redistribute")
+    level = log.level
+    log.setLevel(logging.ERROR)
+    try:
+        yield DeviceMesh(device_type, torch.arange(n).view(mesh.shape),
+                         mesh_dim_names=mesh.axis_names)
+    finally:
+        log.setLevel(level)
+        dist.destroy_process_group()
+
+
+def _on_mesh(tree, axes, rules: dict, mesh: DeviceMesh):
+    """Every meta leaf of ``tree`` as a DTensor on ``mesh`` placed by its
+    logical ``axes`` under ``rules``, whose local tensor is a meta tensor of
+    this rank's shard."""
+    if isinstance(tree, dict):
+        return {k: _on_mesh(v, axes[k], rules, mesh) for k, v in tree.items()}
+    placements = shd.placements_for(mesh, shd.spec_for(axes, rules))
+    local, _ = compute_local_shape_and_global_offset(tree.shape, mesh,
+                                                     placements)
+    return DTensor.from_local(
+        torch.empty(local, dtype=tree.dtype, device=META), mesh, placements,
+        run_check=False, shape=tree.shape, stride=tree.stride())
 
 
 # ---------------------------------------------------------------------------
@@ -157,23 +315,27 @@ def count(fn, *args) -> Tally:
 # ---------------------------------------------------------------------------
 
 
-def serve_step(cfg: ArchConfig):
-    """One decode step: a new token against a seq_len cache. (On meta
-    tensors every sharding constraint is the identity, so none is
-    passed.)"""
+def _constrain(rules: Optional[dict]):
+    return functools.partial(shd.constrain, rules=rules)
+
+
+def serve_step(cfg: ArchConfig, rules: Optional[dict] = None):
+    """One decode step: a new token against a seq_len cache, its sharding
+    constraints bound to ``rules`` (the identity on plain tensors)."""
 
     def fn(params, tokens, cache, pos):
         return M.decode_step(params, cfg, tokens, cache, pos,
-                             attn_impl="torch", moe_impl="einsum")
+                             attn_impl="torch", moe_impl="einsum",
+                             constrain=_constrain(rules))
 
     return fn
 
 
-def prefill_step(cfg: ArchConfig):
+def prefill_step(cfg: ArchConfig, rules: Optional[dict] = None):
     def fn(params, tokens, cache, frontend=None):
         return M.prefill(params, cfg, tokens, cache, attn_impl="torch",
                          ssm_impl="torch", moe_impl="einsum",
-                         frontend=frontend)
+                         frontend=frontend, constrain=_constrain(rules))
 
     return fn
 
@@ -271,24 +433,44 @@ def _cell_inputs(cfg: ArchConfig, cell: ShapeCell) -> tuple[dict, dict]:
     return inputs, axes
 
 
-def tally_cell(arch: str, shape: Union[str, ShapeCell],
-               cfg: Optional[ArchConfig] = None) -> Tally:
-    """Run the cell's step once on meta tensors and count it. The counts
-    do not depend on the mesh: on meta tensors every ``constrain`` is the
-    identity."""
-    cfg = cfg if cfg is not None else get_config(arch)
-    cell = _cell(shape)
-    inputs, _ = _cell_inputs(cfg, cell)
+def _run_step(cfg: ArchConfig, cell: ShapeCell, inputs: dict,
+              rules: Optional[dict]) -> Tally:
+    """Count the cell's step on ``inputs`` (plain or DTensor leaves)."""
     if cell.kind == "train":
-        step = build_train_step(cfg, TrainConfig(optim=OptimConfig()))
+        step = build_train_step(cfg, TrainConfig(optim=OptimConfig()), rules)
         return count(step, inputs["state"], inputs["batch"])
     if cell.kind == "prefill":
         args = [inputs["params"], inputs["tokens"], inputs["cache"]]
         if "frontend" in inputs:
             args.append(inputs["frontend"])
-        return count(prefill_step(cfg), *args)
-    return count(serve_step(cfg), inputs["params"], inputs["tokens"],
+        return count(prefill_step(cfg, rules), *args)
+    return count(serve_step(cfg, rules), inputs["params"], inputs["tokens"],
                  inputs["cache"], inputs["pos"])
+
+
+def tally_cell(arch: str, shape: Union[str, ShapeCell],
+               cfg: Optional[ArchConfig] = None) -> Tally:
+    """Run the cell's step once on plain meta tensors (no mesh: every
+    ``constrain`` is the identity) and count it: the global count."""
+    cfg = cfg if cfg is not None else get_config(arch)
+    cell = _cell(shape)
+    return _run_step(cfg, cell, _cell_inputs(cfg, cell)[0], None)
+
+
+def mesh_tally(cfg: ArchConfig, cell: ShapeCell, mesh: DeviceMesh,
+               rules: dict) -> Tally:
+    """Run the cell's step once as this rank of ``mesh``, every input a
+    DTensor of meta shards placed by ``rules``, and count this rank's ops
+    and collectives (``Tally.by_group`` keyed by mesh axis name)."""
+    inputs, axes = _cell_inputs(cfg, cell)
+    tally = _run_step(cfg, cell, _on_mesh(inputs, axes, rules, mesh), rules)
+    axis_of = {mesh.get_group(i).group_name: name
+               for i, name in enumerate(mesh.mesh_dim_names)}
+    by_axis = collections.Counter()
+    for g, b in tally.by_group.items():
+        by_axis[axis_of.get(g, g)] += b
+    tally.by_group = dict(by_axis)
+    return tally
 
 
 def _shard_bytes(t: torch.Tensor, spec: tuple, sizes: dict) -> int:
@@ -318,25 +500,31 @@ def count_cell(arch: str, shape: Union[str, ShapeCell], mesh, *,
                cfg: Optional[ArchConfig] = None,
                tally: Optional[Tally] = None,
                verbose: bool = True) -> dict:
-    """The counterpart of the reference's ``lower_cell``: the cell's
-    counts (``tally``, made by ``tally_cell`` when not given) and its
-    roofline terms per device of ``mesh`` (a ``MeshShape`` or a
-    ``DeviceMesh``). ``cfg`` replaces the arch's published config (a
-    reduced one, in tests)."""
+    """The counterpart of the reference's ``lower_cell``: the cell's step
+    counted as rank 0 of ``mesh`` and its roofline terms. ``mesh`` is a
+    ``DeviceMesh`` (used as it is) or a ``MeshShape`` (a ``fake_mesh`` is
+    made for the count); ``tally`` is the global count
+    (``tally_cell``'s, made when not given); ``cfg`` replaces the arch's
+    published config (a reduced one, in tests)."""
     cfg = cfg if cfg is not None else get_config(arch)
     cell = _cell(shape)
     tally = tally if tally is not None else tally_cell(arch, cell, cfg)
     rules = rules_for(cfg, mesh, cell)
     sizes = shd.mesh_axis_sizes(mesh)
     n_dev = math.prod(sizes.values())
+    if isinstance(mesh, DeviceMesh):
+        local = mesh_tally(cfg, cell, mesh, rules)
+    else:
+        with fake_mesh(mesh) as dm:
+            local = mesh_tally(cfg, cell, dm, rules)
     inputs, axes = _cell_inputs(cfg, cell)
     arg = argument_bytes(inputs, axes, rules, mesh)
     state_bytes = (argument_bytes(inputs["state"], axes["state"], rules, mesh)
                    if cell.kind == "train" else None)
-    flops_dev = tally.flops / n_dev
-    bytes_dev = tally.bytes / n_dev
-    terms = {"compute_s": flops_dev / PEAK_FLOPS,
-             "memory_s": bytes_dev / HBM_BW}
+    coll = local.collective_bytes()
+    terms = {"compute_s": local.flops / PEAK_FLOPS,
+             "memory_s": local.bytes / HBM_BW,
+             "collective_s": coll["total"] / LINK_BW}
     dominant = max(terms, key=terms.get)
     mf = model_flops(cfg, cell, params_spec(cfg))
     result = {
@@ -347,61 +535,115 @@ def count_cell(arch: str, shape: Union[str, ShapeCell], mesh, *,
         "kind": cell.kind,
         "flops": tally.flops,
         "bytes": tally.bytes,
-        "flops_per_dev": flops_dev,
-        "bytes_per_dev": bytes_dev,
+        "flops_per_dev": float(local.flops),
+        "bytes_per_dev": float(local.bytes),
+        "collective_bytes_per_dev": coll,
+        "collective_bytes_by_axis": {a: float(local.by_group.get(a, 0))
+                                     for a in sizes},
         "memory": {"argument_bytes": arg, "state_bytes": state_bytes},
         "over_hbm": arg > HBM_BYTES,
         "terms_s": terms,
         "dominant": dominant,
         "model_flops": mf,
-        "useful_flops_ratio": mf / max(tally.flops, 1.0),
-        "count_s": round(tally.seconds, 2),
+        "useful_flops_ratio": mf / max(local.flops * n_dev, 1.0),
+        "count_s": round(tally.seconds + local.seconds, 2),
     }
     if verbose:
-        print(f"[dryrun] {arch:>24s} {cell.name:<12s} mesh={result['mesh']:<8s} "
-              f"compute={terms['compute_s']*1e3:9.3f}ms "
-              f"memory={terms['memory_s']*1e3:9.3f}ms "
-              f"dom={dominant.split('_')[0]:<8s} "
-              f"args/dev={arg / 1e9:8.3f}GB"
-              f"{' OVER HBM' if result['over_hbm'] else ''} "
-              f"count={tally.seconds:6.1f}s", flush=True)
+        print(_line(result), flush=True)
     return result
 
 
-def run_cells(archs, shapes, meshes, out_dir: str = ARTIFACT_DIR
-              ) -> list[dict]:
-    """Every applicable (arch, shape), counted once and reported for each
-    mesh ("single": (16, 16), "multipod": (2, 16, 16))."""
+def _line(res: dict) -> str:
+    """One cell's result as a line of text."""
+    t = res["terms_s"]
+    fam = " ".join(f"{k}={v / 1e9:.3f}GB"
+                   for k, v in res["collective_bytes_per_dev"].items()
+                   if v and k != "total")
+    return (f"[dryrun] {res['arch']:>24s} {res['shape']:<12s} "
+            f"mesh={res['mesh']:<8s} "
+            f"compute={t['compute_s'] * 1e3:9.3f}ms "
+            f"memory={t['memory_s'] * 1e3:9.3f}ms "
+            f"coll={t['collective_s'] * 1e3:9.3f}ms "
+            f"dom={res['dominant'].split('_')[0]:<10s} "
+            f"args/dev={res['memory']['argument_bytes'] / 1e9:8.3f}GB"
+            f"{' OVER HBM' if res['over_hbm'] else ''} "
+            f"count={res['count_s']:6.1f}s [{fam or 'no collectives'}]")
+
+
+# ---------------------------------------------------------------------------
+# every cell
+# ---------------------------------------------------------------------------
+
+
+def _count_one(arch: str, shape: str, meshes: tuple) -> list[dict]:
+    """One cell: its global count, then its count on each named mesh
+    ("single": (16, 16), "multipod": (2, 16, 16)); a failure is recorded
+    in the cell's result, with its traceback."""
+    out = []
+    try:
+        tally = tally_cell(arch, shape)
+    except Exception as e:  # noqa: BLE001 — record, keep going
+        return [{"arch": arch, "shape": shape, "mesh": m, "status": "error",
+                 "error": repr(e), "traceback": traceback.format_exc()}
+                for m in meshes]
+    for m in meshes:
+        mesh = make_production_mesh(multi_pod=(m == "multipod"))
+        try:
+            res = count_cell(arch, shape, mesh, tally=tally, verbose=False)
+            res["status"] = "ok"
+        except Exception as e:  # noqa: BLE001 — record, keep going
+            res = {"arch": arch, "shape": shape, "mesh": m,
+                   "status": "error", "error": repr(e),
+                   "traceback": traceback.format_exc()}
+        res["mesh_name"] = m
+        out.append(res)
+    return out
+
+
+def _count_star(job) -> list[dict]:
+    return _count_one(*job)
+
+
+def run_cells(archs, shapes, meshes, out_dir: str = ARTIFACT_DIR,
+              jobs: int = 1) -> list[dict]:
+    """Every applicable (arch, shape), counted on each mesh ("single",
+    "multipod"), over ``jobs`` worker processes (spawned; each cell's counts
+    in one worker, each count on a fake group of its own). Prints one line a
+    cell and mesh as results arrive and writes each as JSON."""
     os.makedirs(out_dir, exist_ok=True)
-    results = []
+    work = []
     for arch in archs:
         cfg = get_config(arch)
         for shape in shapes:
-            if not cell_applicable(cfg, shape):
+            if cell_applicable(cfg, shape):
+                work.append((arch, shape, tuple(meshes)))
+            else:
                 print(f"[dryrun] {arch:>24s} {shape:<12s} SKIP "
                       f"(full-attention arch)")
-                continue
-            try:
-                tally = tally_cell(arch, shape, cfg)
-            except Exception as e:  # noqa: BLE001 — record, keep going
-                tally, err = None, e
-                tb = traceback.format_exc()
-                print(f"[dryrun] {arch:>24s} {shape:<12s} ERROR {e!r}")
-            for mesh_name in meshes:
-                mesh = make_production_mesh(multi_pod=(mesh_name ==
-                                                       "multipod"))
-                if tally is None:
-                    res = {"arch": arch, "shape": shape, "mesh": mesh_name,
-                           "status": "error", "error": repr(err),
-                           "traceback": tb}
-                else:
-                    res = count_cell(arch, shape, mesh, tally=tally)
-                    res["status"] = "ok"
-                results.append(res)
-                path = os.path.join(out_dir,
-                                    f"{mesh_name}__{arch}__{shape}.json")
-                with open(path, "w") as f:
-                    json.dump(res, f, indent=1)
+    results = []
+
+    def take(batch):
+        for res in batch:
+            results.append(res)
+            if res["status"] == "ok":
+                print(_line(res), flush=True)
+            else:
+                print(f"[dryrun] {res['arch']:>24s} {res['shape']:<12s} "
+                      f"mesh={res['mesh']:<8s} ERROR {res['error']}",
+                      flush=True)
+            path = os.path.join(out_dir, f"{res['mesh_name']}__{res['arch']}"
+                                         f"__{res['shape']}.json")
+            with open(path, "w") as f:
+                json.dump(res, f, indent=1)
+
+    if jobs <= 1:
+        for job in work:
+            take(_count_one(*job))
+        return results
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(jobs, len(work))) as pool:
+        for batch in pool.imap_unordered(_count_star, work):
+            take(batch)
     return results
 
 
@@ -411,15 +653,20 @@ def main() -> None:
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multipod", "both"])
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="worker processes (one cell at a time each)")
     ap.add_argument("--out", default=ARTIFACT_DIR)
     args = ap.parse_args()
     archs = [args.arch] if args.arch else list(ARCH_IDS)
     shapes = [args.shape] if args.shape else list(SHAPES)
     meshes = (["single", "multipod"] if args.mesh == "both"
               else [args.mesh])
-    results = run_cells(archs, shapes, meshes, out_dir=args.out)
+    t0 = time.perf_counter()
+    results = run_cells(archs, shapes, meshes, out_dir=args.out,
+                        jobs=args.jobs)
     ok = sum(1 for r in results if r.get("status") == "ok")
-    print(f"[dryrun] {ok}/{len(results)} cells counted OK")
+    print(f"[dryrun] {ok}/{len(results)} cells counted OK in "
+          f"{time.perf_counter() - t0:.1f} s with {args.jobs} job(s)")
     if ok < len(results):
         raise SystemExit(1)
 

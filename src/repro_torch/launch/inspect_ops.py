@@ -2,12 +2,13 @@
 ``repro/launch/inspect_hlo.py``).
 
 The reference groups the optimized HLO's buffer traffic by op kind and by
-shape. Eager PyTorch has no optimized program, so this takes the dry-run's
-tally of one cell (``dryrun.tally_cell``: every aten op's input and output
-bytes, counted on meta tensors) and groups it by aten op and by output
-shape, so a performance iteration can name the tensor it is about to
-shrink. The bytes are the unfused eager traffic, split evenly over the
-mesh's devices as the dry-run splits them.
+shape. Eager PyTorch has no optimized program, so this takes a dry-run
+tally (every op's input and output bytes, counted on meta tensors) and
+groups it by op and by output shape, so a performance iteration can name
+the tensor it is about to shrink. The CLI tallies rank 0 of the production
+mesh (``dryrun.mesh_tally``: its own ops, on its shards); ``analyze`` also
+takes the global tally of ``dryrun.tally_cell``, split evenly over
+``n_dev``. The bytes are the unfused eager traffic.
 
     PYTHONPATH=src python -m repro_torch.launch.inspect_ops \\
         --arch qwen1.5-4b --shape train_4k --top 25
@@ -15,17 +16,15 @@ mesh's devices as the dry-run splits them.
 from __future__ import annotations
 
 import argparse
-import math
 
-from ..configs import ARCH_IDS, SHAPES
-from ..distributed.sharding import mesh_axis_sizes
-from .dryrun import Tally, count_cell, tally_cell
-from .mesh import make_production_mesh
+from ..configs import ARCH_IDS, SHAPES, get_config
+from .dryrun import Tally, fake_mesh, mesh_tally
+from .mesh import make_production_mesh, rules_for
 
 
 def analyze(tally: Tally, n_dev: int = 1, top: int = 20) -> None:
-    """Print the ops and the shapes that touch the most bytes (per device,
-    an even split over ``n_dev``)."""
+    """Print the ops and the shapes that touch the most bytes (per device:
+    ``tally`` over ``n_dev``, 1 for a rank's own tally)."""
     print("top ops by bytes touched (per device, summed over calls):")
     for op, b in sorted(tally.by_op.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {op:>28s} {b / n_dev / 1e9:10.2f} GB  "
@@ -44,11 +43,14 @@ def main() -> None:
                     choices=["single", "multipod"])
     ap.add_argument("--top", type=int, default=20)
     args = ap.parse_args()
+    cfg, cell = get_config(args.arch), SHAPES[args.shape]
     mesh = make_production_mesh(multi_pod=(args.mesh == "multipod"))
-    tally = tally_cell(args.arch, args.shape)
-    res = count_cell(args.arch, args.shape, mesh, tally=tally)
-    print("terms:", {k: round(v, 4) for k, v in res["terms_s"].items()})
-    analyze(tally, math.prod(mesh_axis_sizes(mesh).values()), top=args.top)
+    with fake_mesh(mesh) as dm:
+        local = mesh_tally(cfg, cell, dm, rules_for(cfg, dm, cell))
+    print(f"rank 0 of {args.mesh}: {local.flops / 1e12:.3f} TFLOP, "
+          f"{local.bytes / 1e9:.2f} GB touched, collectives (GB) "
+          f"{ {k: v / 1e9 for k, v in local.collective_bytes().items()} }")
+    analyze(local, top=args.top)
 
 
 if __name__ == "__main__":

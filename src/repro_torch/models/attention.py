@@ -23,6 +23,23 @@ annotations, called at the reference's points; the default is the
 identity, and the mesh-aware one is ``distributed.sharding.constrain``.
 ``attn_axes`` and ``cache_axes`` name each leaf's logical axes;
 ``cache_spec`` is the cache as meta tensors.
+
+On a mesh (DTensors) the sites DTensor cannot be left to run on each
+rank's shard, with the layout pinned (``placement.per_shard``; on plain
+tensors each is the same einsum):
+* the q/k/v projection (``_heads_proj``, through ``layers.dense``): where
+  the heads do not divide the model axis, DTensor's einsum split the
+  flattened N*H over it and its unflatten then failed;
+* the scores and the probability-times-V product (``_scores``, ``_mix``)
+  and the output projection (``_out_proj``): torch 2.11's DTensor refuses
+  the einsums' flatten of batch and heads split over different mesh axes,
+  and of a split inner dimension; a key or head shard gives a partial sum;
+* the in-place cache write (``update_cache``, ``placement.write_at``):
+  DTensor refuses an in-place ``index_put_`` into a cache sharded along the
+  sequence (``rules_for``'s kv_seq), so each rank writes, in place, the
+  rows whose position falls in its own slice of the cache.
+``attend_prefill`` pins q's rows, the logits and its output as
+``attend_full`` does.
 """
 from __future__ import annotations
 
@@ -30,10 +47,11 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import Partial
 
 from .. import resolve_device
 from ..kernels import ops as kops
-from ..placement import on_mesh_of
+from ..placement import on_mesh_of, per_shard, write_at
 from . import layers
 from .layers import Constrain, Tensor, dense_init, no_constraint
 
@@ -98,12 +116,20 @@ def attn_axes(cfg: AttnConfig) -> dict:
     return p
 
 
+def _heads_proj(x: Tensor, w: Tensor) -> Tensor:
+    """[B, S, D] x [D, N, H] -> [B, S, N, H] (``layers.dense``: the heads
+    split only where w's are; DTensor's einsum may split the flattened
+    N*H over the model axis where N does not divide it, and its unflatten
+    then fails)."""
+    return layers.dense("bsd,dnh->bsnh", x, w, {"head": 1}, {"head": 2})
+
+
 def _project_qkv(params: dict, cfg: AttnConfig, x: Tensor,
                  positions: Tensor) -> tuple[Tensor, Tensor, Tensor]:
     dtype = x.dtype
-    q = torch.einsum("bsd,dnh->bsnh", x, params["wq"].to(dtype))
-    k = torch.einsum("bsd,dkh->bskh", x, params["wk"].to(dtype))
-    v = torch.einsum("bsd,dkh->bskh", x, params["wv"].to(dtype))
+    q = _heads_proj(x, params["wq"].to(dtype))
+    k = _heads_proj(x, params["wk"].to(dtype))
+    v = _heads_proj(x, params["wv"].to(dtype))
     if cfg.qkv_bias:
         q = q + params["bq"].to(dtype)
         k = k + params["bk"].to(dtype)
@@ -147,9 +173,10 @@ def _attend(cfg: AttnConfig, q: Tensor, k: Tensor, v: Tensor, impl: str,
         raise ValueError(f"attention impl {impl!r}: 'kernel' or 'torch'")
     k = _repeat_kv(k, cfg.num_heads)
     v = _repeat_kv(v, cfg.num_heads)
-    logits = torch.einsum("bqnh,bknh->bnqk", q, k) * cfg.resolved_scale
     # batch x heads, and q rows context-parallel where the heads do not
     # divide the model axis, so the [S, S] logits are never replicated
+    q = constrain(q, ("batch", "act_seq_q", "act_heads", None))
+    logits = _scores(q, k) * cfg.resolved_scale
     lg_axes = ("batch", "act_heads", "act_seq_q", None)
     logits = constrain(logits, lg_axes)
     logits = layers.softcap(logits.float(), cfg.logit_softcap)
@@ -157,11 +184,35 @@ def _attend(cfg: AttnConfig, q: Tensor, k: Tensor, v: Tensor, impl: str,
     logits = torch.where(mask[None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     probs = constrain(probs, lg_axes)
-    return torch.einsum("bnqk,bknh->bqnh", probs, v)
+    return _mix(probs, v)
+
+
+def _scores(q: Tensor, k: Tensor) -> Tensor:
+    """q [B, Q, N, H] . k [B, K, N, H] -> [B, N, Q, K]. On a mesh on each
+    rank's shard (``placement.per_shard``), batch, heads, q rows and keys
+    kept split: torch 2.11's DTensor refuses the einsum's flatten of batch
+    and heads split over different mesh axes."""
+    return per_shard(lambda q, k: torch.einsum("bqnh,bknh->bnqk", q, k),
+                     (q, {"batch": 0, "q": 1, "head": 2}),
+                     (k, {"batch": 0, "k": 1, "head": 2}),
+                     out={"batch": 0, "head": 1, "q": 2, "k": 3})
+
+
+def _mix(probs: Tensor, v: Tensor) -> Tensor:
+    """probs [B, N, Q, K] . v [B, K, N, H] -> [B, Q, N, H], on each rank's
+    shard as ``_scores``; a key shard gives a partial sum over the keys."""
+    return per_shard(lambda p, v: torch.einsum("bnqk,bknh->bqnh", p, v),
+                     (probs, {"batch": 0, "head": 1, "q": 2, "k": 3}),
+                     (v, {"batch": 0, "k": 1, "head": 2}),
+                     out={"batch": 0, "q": 1, "head": 2, "k": Partial()})
 
 
 def _out_proj(params: dict, o: Tensor, dtype: torch.dtype) -> Tensor:
-    return torch.einsum("bqnh,nho->bqo", o, params["wo"].to(dtype))
+    """[B, Q, N, H] -> [B, Q, O] (``layers.dense``, a head shard giving a
+    partial sum: torch 2.11's DTensor orders the contracted dimensions
+    heads last and refuses to flatten a split inner dimension)."""
+    return layers.dense("bqnh,nho->bqo", o, params["wo"].to(dtype),
+                        {"head": 0}, {"head": Partial()}, x_dims={"head": 2})
 
 
 def attend_full(params: dict, cfg: AttnConfig, x: Tensor, positions: Tensor,
@@ -208,8 +259,8 @@ def update_cache(cache: dict, k_new: Tensor, v_new: Tensor,
     pos: [B]. Returns ``cache``."""
     idx = on_mesh_of(k_new, torch.arange(k_new.shape[0], device=k_new.device))
     p = pos.long()
-    cache["k"][idx, p] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][idx, p] = v_new[:, 0].to(cache["v"].dtype)
+    write_at(cache["k"], idx, p, k_new[:, 0])
+    write_at(cache["v"], idx, p, v_new[:, 0])
     return cache
 
 
@@ -232,7 +283,9 @@ def attend_prefill(params: dict, cfg: AttnConfig, x: Tensor,
     q, k, v = _project_qkv(params, cfg, x, positions)
     cache = fill_cache(cache, k, v)
     q = constrain(q, ("batch", "act_seq", "act_heads", None))
-    return _out_proj(params, _attend(cfg, q, k, v, impl), x.dtype), cache
+    o = _attend(cfg, q, k, v, impl, constrain)
+    o = constrain(o, ("batch", "act_seq", "act_heads", None))
+    return _out_proj(params, o, x.dtype), cache
 
 
 def attend_decode(params: dict, cfg: AttnConfig, x: Tensor, cache: dict,
@@ -257,8 +310,7 @@ def attend_decode(params: dict, cfg: AttnConfig, x: Tensor, cache: dict,
         k, v = constrain(cache["k"], axes), constrain(cache["v"], axes)
         kh = _repeat_kv(k, cfg.num_heads).to(dtype)
         vh = _repeat_kv(v, cfg.num_heads).to(dtype)
-        logits = torch.einsum("bqnh,bknh->bnqk", q.to(dtype), kh) \
-            * cfg.resolved_scale
+        logits = _scores(q.to(dtype), kh) * cfg.resolved_scale
         # the logits follow the cache: its sequence axis where the cache is
         # sequence-sharded, its head axis otherwise
         lg_axes = ("batch", "act_kv_heads", None, "kv_seq")
@@ -273,7 +325,7 @@ def attend_decode(params: dict, cfg: AttnConfig, x: Tensor, cache: dict,
         logits = torch.where(mask, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(q.dtype).to(dtype)
         probs = constrain(probs, lg_axes)
-        o = torch.einsum("bnqk,bknh->bqnh", probs, vh)
+        o = _mix(probs, vh)
     else:
         raise ValueError(f"attention impl {impl!r}: 'kernel' or 'torch'")
     return _out_proj(params, o, x.dtype), cache

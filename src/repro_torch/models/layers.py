@@ -16,7 +16,9 @@ Conventions
   no data): ``model.param_spec`` builds the parameter tree that way.
 * On a mesh the activations are ``DTensor``s, and a DTensor op takes no
   plain tensor beside one: a tensor the model makes itself (a scale,
-  positions, a mask) joins the mesh through ``on_mesh_of``.
+  positions, a mask) joins the mesh through ``on_mesh_of``. Every weight
+  applied to activations goes through ``dense`` (per-rank shards, the
+  layout pinned), and the embedding gather through ``per_shard``.
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial
 
-from ..placement import on_mesh_of
+from ..placement import on_mesh_of, per_shard
 
 Tensor = torch.Tensor
 META = torch.device("meta")
@@ -70,6 +73,31 @@ def embed_init(gen: Optional[torch.Generator],
                shape: tuple[int, ...]) -> Tensor:
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=gen_device(gen))
+
+
+# ---------------------------------------------------------------------------
+# a weight applied to activations
+# ---------------------------------------------------------------------------
+
+#: the batch and sequence dimensions of an activation [B, S, ...]
+TOKENS = {"batch": 0, "seq": 1}
+
+
+def dense(eq: str, x: Tensor, w: Tensor, w_dims: dict, out_dims: dict,
+          x_dims: Optional[dict] = None) -> Tensor:
+    """``torch.einsum(eq, x, w)`` of activations ``x`` [B, S, ...] and a
+    weight ``w``. On a mesh on each rank's shard (``placement.per_shard``):
+    the batch and sequence shards of ``x`` (and those it names in
+    ``x_dims``) stay, so do ``w``'s along ``w_dims``, the output split along
+    ``out_dims`` there (or a partial sum, ``Partial()``, where the
+    dimension is contracted), and every other shard of ``w`` (FSDP's) is
+    gathered first. Left to itself, DTensor's einsum may gather the
+    activations' batch instead of the weight, and run the whole product on
+    every rank; and torch 2.11's refuses to flatten a split inner
+    dimension."""
+    return per_shard(lambda x, w: torch.einsum(eq, x, w),
+                     (x, {**TOKENS, **(x_dims or {})}), (w, w_dims),
+                     out={**TOKENS, **out_dims})
 
 
 # ---------------------------------------------------------------------------
@@ -124,13 +152,16 @@ def mlp(params: dict, x: Tensor, act: str = "silu") -> Tensor:
     """[B, S, D] -> [B, S, D]. Gated if params carry ``wg``."""
     dtype = x.dtype
     fn = _ACTS[act]
-    h = torch.einsum("bsd,df->bsf", x, params["wi"].to(dtype))
+    h = dense("bsd,df->bsf", x, params["wi"].to(dtype), {"ffn": 1},
+              {"ffn": 2})
     if "wg" in params:
-        g = torch.einsum("bsd,df->bsf", x, params["wg"].to(dtype))
+        g = dense("bsd,df->bsf", x, params["wg"].to(dtype), {"ffn": 1},
+                  {"ffn": 2})
         h = fn(g) * h
     else:
         h = fn(h)
-    return torch.einsum("bsf,fd->bsd", h, params["wo"].to(dtype))
+    return dense("bsf,fd->bsd", h, params["wo"].to(dtype), {"ffn": 0},
+                 {"ffn": Partial()}, x_dims={"ffn": 2})
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +187,15 @@ def embedding_axes(tied: bool) -> dict:
 def embed_tokens(params: dict, tokens: Tensor, scale: bool,
                  dtype: torch.dtype = torch.bfloat16) -> Tensor:
     """[B, S] int -> [B, S, D]. The table is cast before the gather and the
-    sqrt(d) scale is applied in the compute dtype."""
+    sqrt(d) scale is applied in the compute dtype. On a mesh the gather runs
+    on each rank's token shard over the whole table
+    (``placement.per_shard``): torch 2.11's DTensor has no strategy for an
+    index over tokens sharded on two mesh axes (batch over pod and data),
+    and its backward's ``index_put`` makes an unnormalised placement."""
     table = params["table"].to(dtype)
-    x = table[tokens.long()]
+    x = per_shard(lambda t, i: t[i.long()], (table, {}),
+                  (tokens, {"batch": 0, "seq": 1}),
+                  out={"batch": 0, "seq": 1})
     if scale:
         # made on the device (not copied there from the host), so that a
         # CUDA graph can capture it
@@ -172,9 +209,11 @@ def unembed(params: dict, x: Tensor, softcap: Optional[float]) -> Tensor:
     then the cast, then the softcap."""
     w = params.get("unembed")
     if w is None:
-        logits = torch.einsum("bsd,vd->bsv", x, params["table"].to(x.dtype))
+        logits = dense("bsd,vd->bsv", x, params["table"].to(x.dtype),
+                       {"vocab": 0}, {"vocab": 2})
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+        logits = dense("bsd,dv->bsv", x, w.to(x.dtype), {"vocab": 1},
+                       {"vocab": 2})
     logits = logits.float()
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)

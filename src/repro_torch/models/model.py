@@ -35,7 +35,9 @@ counterparts of ``jax.eval_shape(init_params)`` and the reference's
 ``ShapeDtypeStruct`` cache), and ``forward``, ``prefill``, ``decode_step``
 and ``LM`` take the reference's ``constrain`` callback (identity by
 default; ``distributed.sharding.constrain`` bound to a rule table on a
-mesh).
+mesh). On a mesh the frontend projection goes through ``layers.dense`` and
+``ssm_prefill``'s decode state (a pad and a slice of the last positions,
+whose DTensor pad raises in torch 2.11) through ``placement.per_shard``.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..configs import ArchConfig
-from ..placement import on_mesh_of
+from ..placement import on_mesh_of, per_shard
 from . import attention as attn
 from . import layers, moe, ssm
 from .layers import Constrain, Tensor, no_constraint
@@ -383,8 +385,8 @@ def _embed_input(params: dict, cfg: ArchConfig, tokens: Tensor,
     dtype = compute_dtype(cfg)
     x = layers.embed_tokens(params["embed"], tokens, cfg.embed_scale, dtype)
     if cfg.frontend and frontend is not None:
-        f = torch.einsum("bfe,ed->bfd", frontend.to(dtype),
-                         params["frontend"]["proj"].to(dtype))
+        f = layers.dense("bfe,ed->bfd", frontend.to(dtype),
+                         params["frontend"]["proj"].to(dtype), {}, {})
         x = torch.cat([f, x[:, f.shape[1]:]], dim=1)
     if cfg.pos_embed == "absolute":
         x = x + layers.sinusoidal_pos(positions, cfg.d_model, dtype)
@@ -495,7 +497,12 @@ def ssm_prefill(params: dict, scfg: ssm.SSMConfig, u: Tensor,
     shorter) in fp32, and the scan's final state."""
     out, fin, xbc_pre = ssm.ssm_full(params, scfg, u, impl)
     k, s = scfg.conv_kernel, u.shape[1]
-    conv = F.pad(xbc_pre, (0, 0, max(k - 1 - s, 0), 0))[:, -(k - 1):, :]
+    # on a mesh on each rank's batch and channel shard: torch 2.11's
+    # DTensor pad raises an IndexError
+    conv = per_shard(
+        lambda x: F.pad(x, (0, 0, max(k - 1 - s, 0), 0))[:, -(k - 1):, :],
+        (xbc_pre, {"batch": 0, "channel": 2}),
+        out={"batch": 0, "channel": 2})
     return out, {"conv": conv.float(), "ssm": fin}
 
 

@@ -21,7 +21,13 @@ The two compute different functions wherever the capacity drops a pair.
 
 On a mesh the router's ``topk`` runs on each rank's token shard
 (``placement.per_shard``): its backward in torch 2.11 scatters the
-gradient into a plain zero tensor, which DTensor refuses.
+gradient into a plain zero tensor, which DTensor refuses. So do the einsum
+dispatch's per-group slot fill and combine gather (each rank its own
+groups: a zero buffer the model makes itself would be replicated, and every
+token gathered to fill it), the expert counts (a partial sum over the
+token shards) and the expert matmuls (``_experts``: DTensor's einsum kept a
+shard of the contracted, FSDP-sharded dimension on a dimension of size 1,
+which its view then refused to drop).
 
 Router: softmax over the expert logits in fp32, top-k, renormalised weights,
 and the Switch-style load-balance loss ``E * sum_e mean_prob_e *
@@ -36,6 +42,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import Partial
 
 from ..kernels import ops as kops
 from ..placement import on_mesh_of, per_shard
@@ -78,9 +85,12 @@ def _counts(flat_e: Tensor, e: int) -> Tensor:
     """Pairs per expert, int32, on the device of ``flat_e``. Not
     ``torch.bincount``: on CUDA it reads the largest index back to the
     host to size its output."""
-    ones = torch.ones_like(flat_e, dtype=torch.int32)
-    zeros = torch.zeros(e, dtype=torch.int32, device=flat_e.device)
-    return on_mesh_of(flat_e, zeros).scatter_add_(0, flat_e, ones)
+    def count(flat_e):
+        ones = torch.ones_like(flat_e, dtype=torch.int32)
+        zeros = torch.zeros(e, dtype=torch.int32, device=flat_e.device)
+        return zeros.scatter_add_(0, flat_e, ones)
+    # on a mesh each rank counts its own pairs: a partial sum
+    return per_shard(count, (flat_e, {"pair": 0}), out={"pair": Partial()})
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +138,17 @@ def capacity_slots(idx: Tensor, e: int, cap: int) -> tuple[Tensor, Tensor]:
     return rank, rank < cap
 
 
+def _experts(x: Tensor, w: Tensor) -> Tensor:
+    """Each expert's slots through its weights: [G, e, c, i] x [e, i, o]
+    -> [G, e, c, o]. On a mesh on each rank's shard
+    (``placement.per_shard``), the group and expert shards kept: DTensor's
+    einsum keeps a shard of the contracted dimension (FSDP-sharded in w) on
+    a dimension of size 1, which its view then refuses to drop."""
+    return per_shard(lambda x, w: torch.einsum("Gecd,edf->Gecf", x, w),
+                     (x, {"group": 0, "expert": 1}), (w, {"expert": 0}),
+                     out={"group": 0, "expert": 1})
+
+
 def moe_einsum(params: dict, cfg: MoEConfig, x: Tensor,
                constrain: Constrain = no_constraint) -> tuple[Tensor, Tensor]:
     """x: [B, S, D] -> ([B, S, D], aux_loss). Capacity-dropped dispatch."""
@@ -149,22 +170,33 @@ def moe_einsum(params: dict, cfg: MoEConfig, x: Tensor,
     slot = torch.where(keep, pairs.long() * cap + rank, e * cap)
     src = xt.reshape(n_groups, g, 1, d).expand(n_groups, g, k, d)
     src = src.reshape(n_groups, g * k, d)
-    xe = on_mesh_of(x, torch.zeros((n_groups, e * cap + 1, d), dtype=dtype,
-                                   device=x.device))
-    xe.scatter_(1, slot[..., None].expand(-1, -1, d), src)
+
+    def dispatch(src, slot):
+        xe = torch.zeros((src.shape[0], e * cap + 1, d), dtype=dtype,
+                         device=src.device)
+        return xe.scatter_(1, slot[..., None].expand(-1, -1, d), src)
+    # on a mesh each rank fills its own groups' slots
+    xe = per_shard(dispatch, (src, {"group": 0}), (slot, {"group": 0}),
+                   out={"group": 0})
     xe = xe[:, :e * cap].reshape(n_groups, e, cap, d)
     xe = constrain(xe, ("batch", "act_experts", None, None))
 
-    h = torch.einsum("Gecd,edf->Gecf", xe, params["wi"].to(dtype))
-    gt = torch.einsum("Gecd,edf->Gecf", xe, params["wg"].to(dtype))
+    h = _experts(xe, params["wi"].to(dtype))
+    gt = _experts(xe, params["wg"].to(dtype))
     h = _ACTS[cfg.act](gt) * h
-    ye = torch.einsum("Gecf,efd->Gecd", h, params["wo"].to(dtype))
+    ye = _experts(h, params["wo"].to(dtype))
     ye = constrain(ye, ("batch", "act_experts", None, None))
     # combine: each pair's slot back (the extra slot is zero), weighted and
     # summed over the k choices in fp32, as the combine einsum sums
-    ye = torch.cat([ye.reshape(n_groups, e * cap, d),
-                    ye.new_zeros((n_groups, 1, d))], dim=1)
-    yk = ye.gather(1, slot[..., None].expand(-1, -1, d))
+
+    def combine(ye, slot):
+        ye = torch.cat([ye.reshape(ye.shape[0], e * cap, d),
+                        ye.new_zeros((ye.shape[0], 1, d))], dim=1)
+        return ye.gather(1, slot[..., None].expand(-1, -1, d))
+    # on a mesh each rank gathers its own groups' pairs from every expert's
+    # slots (the experts made whole)
+    yk = per_shard(combine, (ye, {"group": 0}), (slot, {"group": 0}),
+                   out={"group": 0})
     yk = yk.reshape(n_groups, g, k, d).float()
     w = weights.reshape(n_groups, g, k, 1).float()
     y = (yk * w).sum(dim=2).to(dtype)

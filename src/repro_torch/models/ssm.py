@@ -26,7 +26,12 @@ tensor-parallel handler (that takes only its own layouts, in torch 2.11
 not even replicated inputs with this padding, and has no backward for a
 depthwise conv sharded over batch or channels), and the torch path's SSD
 scan (``kernels.ref.ssd_chunked``, plain PyTorch: DTensor in torch 2.11
-has no sharding rule for the flip in its cumsum's backward).
+has no sharding rule for the flip in its cumsum's backward). The in and
+out projections go through ``layers.dense`` (the batch and sequence shards
+of the activations kept, the weight's FSDP shard gathered), and the scan's
+output, flattened back to [B, S, d_inner], is ``placement.pinned``: in the
+backward its gradient arrives split over the model axis, where the heads
+do not divide it, and DTensor's unflatten to the heads then failed.
 """
 from __future__ import annotations
 
@@ -36,14 +41,15 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial
 
 from .. import resolve_device
 from ..kernels import ops as kops
 from ..kernels import ref as kref
-from ..placement import per_shard
+from ..placement import per_shard, pinned
 from . import layers
-from .layers import (Constrain, Tensor, dense_init, no_constraint, rmsnorm,
-                     rmsnorm_axes, rmsnorm_init)
+from .layers import (Constrain, Tensor, dense, dense_init, no_constraint,
+                     rmsnorm, rmsnorm_axes, rmsnorm_init)
 
 
 @dataclass(frozen=True)
@@ -167,7 +173,8 @@ def ssm_full(params: dict, cfg: SSMConfig, u: Tensor,
     final SSM state [B,H,N,P] fp32, the pre-conv (x|B|C) [B, S, C])."""
     b, s, _ = u.shape
     dtype = u.dtype
-    zxbcdt = torch.einsum("bsd,dk->bsk", u, params["in_proj"].to(dtype))
+    zxbcdt = dense("bsd,dk->bsk", u, params["in_proj"].to(dtype),
+                   {"inner": 1}, {"inner": 2})
     z, xbc_pre, dt = _split_proj(cfg, zxbcdt)
     xbc = F.silu(_causal_conv(params, xbc_pre))
     x = xbc[..., : cfg.d_inner]
@@ -178,9 +185,10 @@ def ssm_full(params: dict, cfg: SSMConfig, u: Tensor,
     xh = x.reshape(b, s, cfg.heads, cfg.head_dim)
     xh = constrain(xh, ("batch", "act_seq", "act_heads", None))
     y, fin = _run_ssd(cfg, xh, dt, a, bmat, cmat, params["D"], impl)
-    y = y.reshape(b, s, cfg.d_inner)
+    y = pinned(y.reshape(b, s, cfg.d_inner))
     y = rmsnorm(params["norm"], y * F.silu(z))
-    out = torch.einsum("bsk,kd->bsd", y, params["out_proj"].to(dtype))
+    out = dense("bsk,kd->bsd", y, params["out_proj"].to(dtype),
+                {"inner": 0}, {"inner": Partial()}, x_dims={"inner": 2})
     return out, fin, xbc_pre
 
 
@@ -218,7 +226,8 @@ def ssm_decode(params: dict, cfg: SSMConfig, u: Tensor,
     advanced in place."""
     b = u.shape[0]
     dtype = u.dtype
-    zxbcdt = torch.einsum("bsd,dk->bsk", u, params["in_proj"].to(dtype))
+    zxbcdt = dense("bsd,dk->bsk", u, params["in_proj"].to(dtype),
+                   {"inner": 1}, {"inner": 2})
     z, xbc_new, dt = _split_proj(cfg, zxbcdt)              # [B,1,*]
     # conv over (state window + new input)
     window = torch.cat([state["conv"].to(dtype), xbc_new], dim=1)   # [B,K,C]
@@ -238,7 +247,8 @@ def ssm_decode(params: dict, cfg: SSMConfig, u: Tensor,
     y = y + params["D"][None, :, None] * xh
     y = y.reshape(b, 1, cfg.d_inner).to(dtype)
     y = rmsnorm(params["norm"], y * F.silu(z))
-    out = torch.einsum("bsk,kd->bsd", y, params["out_proj"].to(dtype))
+    out = dense("bsk,kd->bsd", y, params["out_proj"].to(dtype),
+                {"inner": 0}, {"inner": Partial()}, x_dims={"inner": 2})
     state["conv"].copy_(window[:, 1:])
     state["ssm"].copy_(ssm)
     return out, state

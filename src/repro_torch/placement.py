@@ -5,8 +5,11 @@ sharding``), and DTensor ops take no plain tensor beside a DTensor, and
 have no sharding rule for a few ops. Each helper is the identity on a
 plain tensor, so the mesh-less path runs exactly as without them.
 ``per_shard`` runs such an op on each rank's shard where the op is
-independent along the sharded dimensions; ``on_whole`` replicates first,
-for an op that is not.
+independent along the sharded dimensions (or sums over them: a partial
+sum), which also pins a layout that DTensor's own choice would break;
+``on_whole`` replicates first, for an op that is not. ``pinned`` holds a
+gradient to its tensor's layout, and ``write_at`` writes rows into a
+sharded tensor in place, each rank into its own shard.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import math
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 
 def on_mesh_of(ref: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -55,6 +60,43 @@ def on_whole(fn, *xs):
     return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
 
 
+def pinned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient redistributed to ``x``'s own placements
+    on the way back: for a view whose backward DTensor cannot take in the
+    layout the gradient arrives in (an unflatten of a dimension sharded
+    over more ways than its outer factor has)."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, x.placements)
+
+
+def write_at(dst: torch.Tensor, idx: torch.Tensor, pos: torch.Tensor,
+             src: torch.Tensor) -> None:
+    """``dst[idx, pos] = src`` in place, ``dst`` [B, S, ...], ``idx`` and
+    ``pos`` [B] (each row's index and the position it writes), ``src``
+    [B, ...] (cast to ``dst``'s dtype). On a DTensor (DTensor refuses an
+    in-place write that would move ``dst``'s shards) each rank writes into
+    its own shard: the rows of its row shard whose position falls in its
+    position shard, at that position, the others writing back what their
+    clamped position holds; ``idx``, ``pos`` and ``src`` are first placed
+    to match ``dst``'s shards."""
+    if not isinstance(dst, DTensor):
+        dst[idx, pos] = src.to(dst.dtype)
+        return
+    mesh, pl = dst.device_mesh, dst.placements
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in pl]
+    cols = [Shard(p.dim - 1) if isinstance(p, Shard) and p.dim >= 2 else r
+            for p, r in zip(pl, rows)]
+    shape, off = compute_local_shape_and_global_offset(dst.shape, mesh, pl)
+    local = dst.to_local()
+    i = idx.redistribute(mesh, rows).to_local() - off[0]
+    p = pos.redistribute(mesh, rows).to_local() - off[1]
+    inside = ((p >= 0) & (p < shape[1])).view((-1,) + (1,) * (src.ndim - 1))
+    p = p.clamp(0, shape[1] - 1)
+    new = src.redistribute(mesh, cols).to_local().to(local.dtype)
+    local[i, p] = torch.where(inside, new, local[i, p])
+
+
 def whole(x: torch.Tensor, dim: int) -> torch.Tensor:
     """``x`` with tensor dimension ``dim`` whole on every rank (each
     ``Shard(dim)`` placement redistributed to ``Replicate()``), for an op
@@ -70,29 +112,38 @@ def whole(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 def per_shard(fn, *args, out):
     """``fn`` on each rank's local tensors, for an op DTensor has no rule
-    for that is independent along some dimensions (tokens, batch, heads,
+    for, or whose output layout DTensor would choose unfit for the next op,
+    that is independent along some dimensions (tokens, batch, heads,
     channels): shards along those stay where they are.
 
     Each argument is ``(x, dims)``, ``dims`` naming the dimensions of ``x``
     along which ``fn`` is independent (``{name: dim}``); ``out`` names
-    those of each output (one dict, or a tuple of them). A mesh dimension
-    that shards the first DTensor argument along a named dimension stays
-    split: there every argument is sharded along its dimension of that
-    name, or replicated if it has none (its gradient is then a partial sum
-    over that mesh dimension). Every other mesh dimension is replicated
-    first, so ``fn`` sees every other dimension whole; so is every mesh
-    dimension if a named dimension does not split evenly. Plain arguments:
-    ``fn`` on them."""
+    those of each output (one dict, or a tuple of them), or maps a name to
+    ``Partial()`` where ``fn`` sums over that dimension (a contraction): the
+    output is then a partial sum over its shards. A mesh dimension
+    that shards a DTensor argument along a named dimension stays split (the
+    first such argument decides): there every argument is sharded along its
+    dimension of that name, or replicated if it has none (its gradient is
+    then a partial sum over that mesh dimension). Every other mesh
+    dimension is replicated first, so ``fn`` sees every other dimension
+    whole; so is every mesh dimension if a named dimension does not split
+    evenly. Plain arguments: ``fn`` on them."""
     xs = [x for x, _ in args]
-    first = next((i for i, x in enumerate(xs) if isinstance(x, DTensor)),
-                 None)
-    if first is None:
+    dts = [(x, dims) for x, dims in args if isinstance(x, DTensor)]
+    if not dts:
         return fn(*xs)
-    lead, lead_dims = args[first]
-    mesh = lead.device_mesh
-    names = [next((n for n, d in lead_dims.items()
-                   if p == Shard(d % lead.ndim)), None)
-             if isinstance(p, Shard) else None for p in lead.placements]
+    mesh = dts[0][0].device_mesh
+
+    def name_on(i):
+        for x, dims in dts:
+            p = x.placements[i]
+            n = next((n for n, d in dims.items()
+                      if isinstance(p, Shard) and p == Shard(d % x.ndim)),
+                     None)
+            if n is not None:
+                return n
+        return None
+    names = [name_on(i) for i in range(mesh.ndim)]
     for x, dims in args:
         for n, d in dims.items():
             ways = math.prod(mesh.size(i) for i, m in enumerate(names)
@@ -118,8 +169,10 @@ def per_shard(fn, *args, out):
             raise ValueError(f"per_shard: an output has no dimension "
                              f"{missing[0]!r} to stay split along")
         return DTensor.from_local(
-            t, mesh, [Shard(dims[n] % t.ndim) if n is not None
-                      else Replicate() for n in names], run_check=False)
+            t, mesh, [Replicate() if n is None else dims[n]
+                      if isinstance(dims[n], Partial)
+                      else Shard(dims[n] % t.ndim) for n in names],
+            run_check=False)
     if isinstance(res, tuple):
         return tuple(wrap(t, d) for t, d in zip(res, out))
     return wrap(res, out)

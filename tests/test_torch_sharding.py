@@ -389,7 +389,8 @@ def test_kernel_bindings_refuse_a_dtensor(name):
 
 @pytest.fixture(scope="module")
 def sharded_runs():
-    """Both ranks of tests/_torch_mesh_worker.py, killed after 120 s."""
+    """Both ranks of tests/_torch_mesh_worker.py, killed after 120 s: rank
+    0's results, and each rank's counts (rank 1's under "rank1/")."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = os.path.join(root, "tests", "_torch_mesh_worker.py")
     with tempfile.TemporaryDirectory() as d:
@@ -410,8 +411,11 @@ def sharded_runs():
                     p.kill()
                     p.wait()
         assert [p.returncode for p in procs] == [0, 0], logs
-        with np.load(out) as z:
-            return {k: z[k] for k in z.files}
+        runs = {}
+        for path, prefix in ((out, ""), (W.rank1_path(out), "rank1/")):
+            with np.load(path) as z:
+                runs.update({prefix + k: z[k] for k in z.files})
+        return runs
 
 
 @pytest.mark.parametrize("mesh", W.MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
@@ -472,3 +476,44 @@ def test_sharded_compression_equals_the_unsharded(sharded_runs, arch, mesh):
             np.testing.assert_array_equal(
                 sharded_runs[f"{tag}/b{block}/e{i}"], c.numpy(),
                 err_msg=f"{tag} block {block} leaf {i}")
+
+
+@pytest.mark.parametrize("mesh", W.MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_fake_group_count_equals_a_real_rank(sharded_runs, arch, mesh):
+    """The dry-run's count of the step as rank 0 of a fake group (a
+    ``"cpu"`` mesh, whose all-to-all DTensor runs as gloo's all-gather)
+    equals what each real gloo rank's step moved, family by family, and
+    rank 0's FLOPs."""
+    from repro_torch.launch import dryrun as D
+    cfg = W.smoke(arch)
+    with D.fake_mesh(tmesh.MeshShape(("data", "model"), mesh), "cpu") as m:
+        fake = D.mesh_tally(cfg, W.train_cell(), m, tmesh.rules_for(cfg, m))
+    tag = f"{arch}@{mesh[0]}x{mesh[1]}"
+    assert fake.flops == sharded_runs[f"{tag}/flops"]
+    for fam in D.FAMILIES:
+        for rank in ("", "rank1/"):
+            assert fake.collectives.get(fam, 0) == \
+                sharded_runs[f"{rank}{tag}/coll/{fam}"], (fam, rank)
+    assert sum(fake.collectives.values()) > 0
+
+
+@pytest.mark.parametrize("mesh", W.MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_sharded_decode_equals_the_unsharded(sharded_runs, mesh):
+    """gemma-2b (one kv head) decodes one token on the mesh, its cache
+    sequence-sharded over ``model`` on (1, 2) (each rank writing the rows
+    whose position falls in its half) and batch-sharded on (2, 1): logits
+    and every cache leaf equal the unsharded step's."""
+    cfg = W.smoke(W.DECODE_ARCH)
+    rules = tmesh.rules_for(cfg, tmesh.MeshShape(("data", "model"), mesh),
+                            W.decode_cell())
+    assert rules["kv_seq"] == ("model" if mesh[1] > 1 else None)
+    params, cache, tokens, pos = W.decode_inputs(cfg)
+    logits = W.decode(cfg, params, cache, tokens, pos)
+    tag = f"{W.DECODE_ARCH}@{mesh[0]}x{mesh[1]}/decode"
+    np.testing.assert_allclose(sharded_runs[f"{tag}/logits"], logits.numpy(),
+                               rtol=0, atol=SHARDED_TOL)
+    for i, c in enumerate(TM.tree_leaves(cache)):
+        np.testing.assert_allclose(sharded_runs[f"{tag}/c{i}"], c.numpy(),
+                                   rtol=0, atol=SHARDED_TOL,
+                                   err_msg=f"{tag} cache leaf {i}")
