@@ -127,9 +127,22 @@ Phases, each of which raises (exit code != 0) on any failure:
    updated in place, batch 8 x 128, the reference launcher's defaults),
    first under deterministic algorithms, the graphed ``Trainer`` against
    the eager loop (``build_train_step``'s function called in a loop):
-   every metric and the final params, m and v bit for bit; then in the
+   every metric and the final params, m and v bit for bit; then
+   rematerialisation (``cfg.remat``, ``models.remat``): gemma2-2b at batch
+   1 x 2048 under each of "none", "full", "dots" and "dots_nobatch", 3
+   eager steps and 3 graphed steps (2 warm-up, 1 captured) each, every
+   metric and the final params, m and v bit for bit to the eager "none"
+   run under deterministic algorithms (an op those report as lacking a
+   deterministic kernel is named and held at the state tolerance), step ms
+   eager and graphed, each eager step's ``max_memory_allocated`` less the
+   bytes before it against the dry-run's tally of the same step on meta
+   tensors (within 10%), the graph pool's reserved bytes; and where the
+   tally puts "none" over 80 GB at 1 x 4096 and "dots_nobatch" under it,
+   the graphed ``Trainer`` there under "dots_nobatch" to its captured
+   step; then in the
    normal mode through the graphed ``Trainer`` with the counters reset:
-   step ms, tokens/s, memory and model-FLOPs share, every metric finite,
+   step ms, tokens/s, memory (the graph pool beside the dry-run's peak of
+   the step) and model-FLOPs share, every metric finite,
    1024 tokens a step, a replay profiled; then the eager control on the
    same state (step ms, peak memory, a profiled step), the busy share,
    device kernels and host launch calls a step of each; the AdamW kernel
@@ -164,12 +177,14 @@ Phases, each of which raises (exit code != 0) on any failure:
    to 4 layers decodes one token on the mesh (the torch path, a 1024-row
    cache) with logits and cache equal bit for bit to the mesh-less step's;
    then, with the NCCL group destroyed, the dry-run in a process of its own
-   (``python -m repro_torch.launch.dryrun --jobs 8``): each of the 33
-   cells' DTensor step counted as rank 0 of the (16, 16) and of the
-   (2, 16, 16) mesh over a fake process group, one line a cell and mesh
-   (compute, memory and collective terms, the dominant one, argument GB
-   per device, collective bytes by family), with its seconds; the phase
-   fails if any of the 66 counts fails. No train or mesh run launches a
+   (``python -m repro_torch.launch.dryrun --jobs 8``, train cells under
+   its default ``--remat dots``): each of the 33 cells' DTensor step
+   counted as rank 0 of the (16, 16) and of the (2, 16, 16) mesh over a
+   fake process group, one line a cell and mesh (compute, memory and
+   collective terms, the dominant one, argument, temporary and peak GB
+   per device, the remat, collective bytes by family), with its seconds
+   and the cells whose arguments plus peak exceed 80 GB; the phase fails
+   if any of the 66 counts fails. No train or mesh run launches a
    forward kernel (the mesh step's AdamW kernel runs on each rank's local
    shards, the mesh-less step is graphed); only the restored prefill adds
    SSD launches;
@@ -2872,6 +2887,8 @@ def train_full_width(torch, card: str) -> tuple[float, dict]:
     total = torch.cuda.get_device_properties(0).total_memory
     g_peak = torch.cuda.max_memory_allocated()
     g_reserved = torch.cuda.memory_reserved()
+    g_pool = graph_pool_bytes(torch, trainer._step_fn)
+    tally, _ = remat_tally(cfg, seq, batch, cfg.remat)
     n_params = sum(p.numel() for p in M.tree_leaves(trainer.state["params"]))
     shapes = [tuple(p.shape) for p in M.tree_leaves(trainer.state["params"])]
     times = [t * 1e3 for t in trainer.straggler.times]
@@ -2898,7 +2915,9 @@ def train_full_width(torch, card: str) -> tuple[float, dict]:
         f"{graphs.WARMUP_CALLS + 2}-{steps}, {tok_s} tokens/s, model-FLOPs "
         f"share {share} of {PEAK_BF16 / 1e12:.0f} TFLOP/s bf16 (6 N tokens "
         f"/ step time); peak allocated {g_peak} bytes (the warm-up steps "
-        f"included), reserved with the graph's pool {g_reserved} of {total}; "
+        f"included), reserved with the graph's pool {g_reserved} of {total}, "
+        f"the pool {g_pool} against the dry-run's peak of the step "
+        f"{tally.peak_bytes}; "
         f"cudaMalloc calls {stats['num_device_alloc']}, retries "
         f"{stats['num_alloc_retries']}; launches {launches}; losses "
         f"{[m['loss'] for m in hist]}; {card}")
@@ -2953,6 +2972,278 @@ def train_full_width(torch, card: str) -> tuple[float, dict]:
     del trainer
     torch.cuda.empty_cache()
     return med, {"shapes": shapes, "params": n_params, "leaves": leaves}
+
+
+#: the rematerialisation runs (phase 10): gemma2-2b at its published config,
+#: (arch, seq, batch, steps) under each policy, the eager loop and the
+#: graphed ``Trainer``; then one graphed step at REMAT_LONG_SEQ under
+#: "dots_nobatch" where the dry-run's tally puts "none" over the card's
+#: memory there and "dots_nobatch" under it
+TRAIN_REMAT = ("gemma2-2b", 2048, 1, 3)
+REMAT_LONG_SEQ = 4096
+#: replays timed after each graphed run's bit-equality check
+REMAT_TIMED_REPLAYS = 3
+#: the dry-run's tally of a step's peak bytes against the card's
+#: ``max_memory_allocated`` delta over the step
+REMAT_MEMORY_RTOL = 0.10
+
+
+def graph_pool_bytes(torch, step) -> int:
+    """The bytes the memory pool of the one CUDA graph of ``step`` (a
+    ``GraphedTrainStep``) reserves. Holds no reference to the graph: one
+    held would keep its pool from the allocator after the step drops it."""
+    (g,) = step.graphs.values()
+    pool = tuple(g.graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == pool)
+
+
+def remat_tally(cfg, seq: int, batch: int, policy: str):
+    """The dry-run's count of the mesh-less train step on meta tensors under
+    ``policy`` (``dryrun.tally_cell``): (its Tally, the step's argument
+    bytes: the state and the batch)."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun as D
+    cell = ShapeCell(f"train_{seq}", seq, batch, "train")
+    tally = D.tally_cell(cfg.name, cell, cfg, remat=policy)
+    inputs, _ = D._cell_inputs(cfg, cell)
+    return tally, sum(x.numel() * x.element_size()
+                      for _, x in flat_tree(inputs))
+
+
+def hold_state(label: str, got: dict, want: dict, nondet: list) -> str:
+    """Every leaf of the state ``got`` against the host copy ``want``: equal
+    bit for bit, or, only when the deterministic settings reported an op
+    without a deterministic kernel (``nondet``), within phase 10's state
+    tolerance. Returns how they were held."""
+    import torch
+    loose = []
+    for n, x in flat_tree(got):
+        w = want[n].to(x.device)
+        if torch.equal(x, w):
+            continue
+        if not nondet:
+            raise AssertionError(f"{label}: state {n} differs from the "
+                                 f"eager 'none' run's")
+        close(f"{label} state {n}", x.cpu(), want[n], **TRAIN_STATE_TOL)
+        loose.append(n)
+    return ("bit for bit" if not loose else
+            f"{len(loose)} leaves within {TRAIN_STATE_TOL} (ops without a "
+            f"deterministic kernel: {nondet})")
+
+
+def hold_metrics(label: str, got: list, want: list, nondet: list) -> None:
+    """Each step's metrics against the eager "none" run's, as
+    ``hold_state`` holds the state."""
+    import torch
+    if got == want:
+        return
+    if not nondet:
+        raise AssertionError(f"{label}: metrics {got}, the eager 'none' "
+                             f"run's {want}")
+    for g, w in zip(got, want):
+        for k in w:
+            close(f"{label} metric {k}", torch.tensor(g[k]),
+                  torch.tensor(w[k]), 0.0, TRAIN_METRIC_RTOL)
+
+
+def remat_eager(torch, cfg, tcfg, batches) -> tuple:
+    """``build_train_step``'s function under ``cfg.remat`` in a loop from
+    the seed under deterministic algorithms: (metrics, step ms, each step's
+    ``max_memory_allocated`` less the bytes allocated before it, the state,
+    the ops without a deterministic kernel)."""
+    from repro_torch.training import build_train_step, init_train_state
+    step_fn = build_train_step(cfg, tcfg)
+    with deterministic() as det:
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg, tcfg, "cuda")
+        hist, ms, peaks = [], [], []
+        with train_launches(f"{cfg.name} eager remat={cfg.remat}",
+                            adamw=len(batches) * n_leaves(state["params"])):
+            for b in batches:
+                b = on_card(b)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                _, m = step_fn(state, b)
+                m = {k: float(v) for k, v in m.items()}
+                ms.append((time.perf_counter() - t0) * 1e3)
+                peaks.append(torch.cuda.max_memory_allocated() - before)
+                hist.append(m | {"step": int(state["opt"]["step"])})
+    return hist, ms, peaks, state, det.nondet
+
+
+def remat_graphed(torch, cfg, tcfg, batches, more, want: dict,
+                  want_hist: list) -> tuple:
+    """The graphed ``Trainer`` under ``cfg.remat`` from the seed over
+    ``batches`` (its eager warm-up steps, then the captured step) under
+    deterministic algorithms, its metrics and state held to the eager
+    "none" run's (``want_hist``, ``want``), then ``more`` replays timed:
+    (the metrics, how the state was held, the replays' ms, the graph pool's
+    reserved bytes, the ops without a deterministic kernel)."""
+    from repro_torch import graphs
+    from repro_torch.training import Trainer
+    label = f"{cfg.name} graphed remat={cfg.remat}"
+    tr = Trainer(cfg=cfg, tcfg=tcfg, data=iter(batches + more),
+                 log_every=1000, device="cuda")
+    if not isinstance(tr._step_fn, graphs.GraphedTrainStep):
+        raise AssertionError(f"{cfg.name}: Trainer on CUDA is not graphed")
+    tr.init_or_resume(resume="never")
+    leaves = n_leaves(tr.state["params"])
+    with deterministic() as det, \
+            train_launches(label, adamw=len(batches) * leaves):
+        hist = tr.run(len(batches))
+    hold_metrics(label, hist, want_hist, det.nondet)
+    held = hold_state(label, tr.state, want, det.nondet)
+    pool = graph_pool_bytes(torch, tr._step_fn)
+    with train_launches(f"{label} replays", adamw=len(more) * leaves):
+        tr.run(len(batches) + len(more))
+    if len(tr._step_fn.graphs) != 1:
+        raise AssertionError(f"{label}: {len(tr._step_fn.graphs)} graphs "
+                             f"captured, expected 1")
+    ms = [t * 1e3 for t in list(tr.straggler.times)[len(batches):]]
+    del tr
+    torch.cuda.empty_cache()
+    return hist, held, ms, pool, det.nondet
+
+
+def remat_long(torch, cfg0, tcfg, card: str) -> None:
+    """gemma2-2b at batch 1 x REMAT_LONG_SEQ: the dry-run's tally of the
+    step under "none" and "dots_nobatch" against the card's 80 GB
+    (arguments plus the step's peak); where "none" is over and
+    "dots_nobatch" under, the graphed ``Trainer`` under "dots_nobatch" for
+    its warm-up steps and one captured and replayed step: every metric
+    finite, its peak bytes against the tally's."""
+    from repro_torch.launch.dryrun import HBM_BYTES
+    arch, _, batch, _ = TRAIN_REMAT
+    seq = REMAT_LONG_SEQ
+    need = {}
+    for policy in ("none", "dots_nobatch"):
+        tally, args = remat_tally(dataclasses.replace(cfg0, remat=policy),
+                                  seq, batch, policy)
+        need[policy] = (tally, args + tally.peak_bytes)
+    fits = {p: n <= HBM_BYTES for p, (_, n) in need.items()}
+    log(f"[remat] {arch} batch {batch} x {seq}: the dry-run's arguments plus "
+        f"peak bytes {({p: n for p, (_, n) in need.items()})} against the "
+        f"card's {HBM_BYTES:.0f}: fits {fits}")
+    if fits["none"] or not fits["dots_nobatch"]:
+        log(f"[remat] {arch} batch {batch} x {seq}: no run (it runs where "
+            f"'none' is over and 'dots_nobatch' under)")
+        return
+    from repro_torch import graphs
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.training import Trainer
+    cfg = dataclasses.replace(cfg0, remat="dots_nobatch")
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq,
+                           global_batch=batch, seed=0)
+    torch.cuda.empty_cache()
+    tr = Trainer(cfg=cfg, tcfg=tcfg, data=iter(data), log_every=1000,
+                 device="cuda")
+    tr.init_or_resume(resume="never")
+    steps = graphs.WARMUP_CALLS + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with train_launches(f"{arch} x {seq} graphed remat=dots_nobatch",
+                        adamw=steps * n_leaves(tr.state["params"])):
+        hist = tr.run(steps)
+    peak = torch.cuda.max_memory_allocated() - before
+    reserved = torch.cuda.memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    for m in hist:
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{arch} x {seq} step {m['step']}: "
+                                 f"non-finite {bad}")
+    if len(tr._step_fn.graphs) != 1:
+        raise AssertionError(f"{arch} x {seq}: no graph captured")
+    tally = need["dots_nobatch"][0]
+    pool = graph_pool_bytes(torch, tr._step_fn)
+    log(f"[remat] {arch} batch {batch} x {seq} under dots_nobatch through "
+        f"the graphed Trainer: {steps} steps (the last captured and "
+        f"replayed), losses {[m['loss'] for m in hist]}, step ms "
+        f"{[t * 1e3 for t in tr.straggler.times]}; max_memory_allocated "
+        f"less the state's {peak} bytes against the dry-run's peak "
+        f"{tally.peak_bytes} (ratio {peak / tally.peak_bytes:.4f}); the "
+        f"graph pool reserves {pool}; reserved {reserved} of {total}; "
+        f"{card}")
+    del tr
+    torch.cuda.empty_cache()
+
+
+def train_remat(torch, card: str) -> None:
+    """gemma2-2b at its published config, batch TRAIN_REMAT, under each of
+    the four rematerialisation policies (``cfg.remat``, each layer group of
+    ``forward`` checkpointed by ``models.remat``): the eager loop and the
+    graphed ``Trainer`` from the same seed under deterministic algorithms,
+    every metric and the final params, m and v equal to the eager "none"
+    run's bit for bit; step ms eager and graphed (replays); each eager
+    step's ``max_memory_allocated`` less the bytes allocated before it,
+    against the dry-run's tally of the same step on meta tensors (within
+    REMAT_MEMORY_RTOL); the graph pool's reserved bytes. Then
+    ``remat_long``."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.remat import POLICIES
+
+    arch, seq, batch, steps = TRAIN_REMAT
+    cfg0, tcfg, _ = train_setup(torch)
+    data = SyntheticLMData(vocab_size=cfg0.vocab_size, seq_len=seq,
+                           global_batch=batch, seed=0)
+    batches = [data.batch(i) for i in range(steps)]
+    more = [data.batch(steps + i) for i in range(REMAT_TIMED_REPLAYS)]
+    want = want_hist = None
+    rows = []
+    for policy in POLICIES:
+        cfg = dataclasses.replace(cfg0, remat=policy)
+        t0 = time.perf_counter()
+        tally, _ = remat_tally(cfg, seq, batch, policy)
+        t_tally = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        hist, e_ms, peaks, state, nd_e = remat_eager(torch, cfg, tcfg,
+                                                     batches)
+        if want is None:
+            want = {n: x.cpu() for n, x in flat_tree(state)}
+            want_hist, held_e = hist, "the reference"
+        else:
+            hold_metrics(f"{arch} eager remat={policy}", hist, want_hist,
+                         nd_e)
+            held_e = hold_state(f"{arch} eager remat={policy}", state, want,
+                                nd_e)
+        del state
+        torch.cuda.empty_cache()
+        g_hist, held_g, g_ms, pool, nd_g = remat_graphed(
+            torch, cfg, tcfg, batches, more, want, want_hist)
+        measured = peaks[-1]
+        err = abs(tally.peak_bytes - measured) / measured
+        rows.append((policy, statistics.median(e_ms[1:]),
+                     statistics.median(g_ms), measured, tally.peak_bytes,
+                     pool))
+        log(f"[remat] {arch} (published config) batch {batch} x {seq}, "
+            f"remat={policy}: the eager loop and the graphed Trainer (steps "
+            f"1-2 eager warm-up, 3 captured and replayed), {steps} steps "
+            f"each under deterministic algorithms, losses "
+            f"{[m['loss'] for m in hist]} / {[m['loss'] for m in g_hist]}; "
+            f"against the eager 'none' run: eager {held_e}, graphed "
+            f"{held_g}; ops without a deterministic kernel: eager {nd_e}, "
+            f"graphed {nd_g}; step ms eager {e_ms}, graphed replays {g_ms}; "
+            f"max_memory_allocated less the bytes before each eager step "
+            f"{peaks}; the dry-run's tally of the step on meta tensors "
+            f"{tally.peak_bytes} bytes (temp "
+            f"{tally.peak_bytes - tally.output_bytes}, output "
+            f"{tally.output_bytes}; counted in {t_tally:.1f} s), off by "
+            f"{err:.4f} of the card's (gate {REMAT_MEMORY_RTOL}); the graph "
+            f"pool reserves {pool} bytes; counted FLOPs {tally.flops}; {card}")
+        if err > REMAT_MEMORY_RTOL:
+            raise AssertionError(f"{arch} remat={policy}: the dry-run's peak "
+                                 f"{tally.peak_bytes} bytes, the card's "
+                                 f"{measured}")
+    del want
+    log(f"[remat] {arch} batch {batch} x {seq}, per policy (policy, eager "
+        f"median ms of steps 2-{steps}, graphed median replay ms, card peak "
+        f"bytes of a step, the dry-run's, graph pool reserved bytes): "
+        f"{rows}; {card}")
+    remat_long(torch, cfg0, tcfg, card)
 
 
 #: odd leaf sizes the AdamW kernel is held to its plain version at
@@ -3254,6 +3545,7 @@ def train_phase(torch, card: str) -> tuple[dict, float, dict, dict]:
     torch.cuda.empty_cache()
     check_train_smoke(torch)
     train_graphed_bitwise(torch, card)
+    train_remat(torch, card)
     step_ms, info = train_full_width(torch, card)
     adamw = check_adamw(torch, info, card)
     launches, handoff = train_restart(torch)
@@ -3375,7 +3667,8 @@ def mesh_train(torch, card: str, mesh, phase10_ms: float) -> None:
         f"{plain_ms}, phase 10's median {phase10_ms}; mesh run peak memory "
         f"{peak} bytes; {card}")
 
-    res = D.count_cell(arch, cell, mesh, verbose=False)
+    # the Trainer's step, under its config's remat ("none")
+    res = D.count_cell(arch, cell, mesh, remat=cfg.remat, verbose=False)
     have = state_nbytes(tr.state)
     batch_bytes = 2 * batch * seq * 4          # tokens and labels, int32
     if res["memory"]["state_bytes"] != have or \
@@ -3605,10 +3898,12 @@ def dryrun_phase() -> None:
     over = sorted((r["arch"], r["shape"], r["mesh"]) for r in results
                   if r["over_hbm"])
     dominant = collections.Counter(r["dominant"] for r in results)
+    remats = collections.Counter(r["remat"] for r in results)
     log(f"[dryrun] 33 cells x 2 meshes counted as rank 0 of each mesh on "
-        f"meta tensors in {seconds:.1f} s ({DRYRUN_JOBS} worker processes); "
-        f"dominant terms {dict(dominant)}; argument bytes over the card's "
-        f"80 GB: {over or 'none'}")
+        f"meta tensors in {seconds:.1f} s ({DRYRUN_JOBS} worker processes), "
+        f"remat by cell {dict(remats)}; dominant terms {dict(dominant)}; "
+        f"arguments plus the step's peak over the card's 80 GB "
+        f"({len(over)}): {over or 'none'}")
 
 
 def mesh_phase(torch, card: str, phase10_ms: float, handoff: dict) -> dict:

@@ -58,6 +58,7 @@ untimed call), not while other threads serve.
 """
 from __future__ import annotations
 
+import gc
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -114,6 +115,10 @@ def capture(run: Callable[..., Any], inputs: tuple[Tensor, ...],
     Raises if the capture fails; the caller's current stream is current
     again afterwards either way."""
     device = inputs[0].device
+    # ``torch.cuda.graph`` empties the allocator's cache before a capture but
+    # collects no garbage: memory a dead reference cycle still holds would
+    # stay out of reach of the graph's pool
+    gc.collect()
     caller = torch.cuda.current_stream(device)
     static = tuple(t.clone() for t in inputs)
     side = side if side is not None else torch.cuda.Stream(device)

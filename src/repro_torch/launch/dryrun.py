@@ -33,9 +33,26 @@ are rank 0's own: imbalance and work replicated over the mesh show, and
 n_devices)``. ``flops`` and ``bytes`` stay the global count of the
 unsharded step (``tally_cell``, plain meta tensors, no mesh). The bytes are
 the eager program's traffic, every op a round trip to memory, unfused; the
-counts see neither XLA's fusion nor its rematerialisation (the port has
-none: a train step counts no recompute), nor a collective that a compiler
-would overlap with compute or elide.
+counts see neither XLA's fusion nor a collective that a compiler would
+overlap with compute or elide.
+
+Train cells run with the rematerialisation policy ``remat`` ("dots" by
+default, as the reference lowers them; ``--remat``), each layer group of
+``forward`` checkpointed by ``models.remat``; prefill and decode cells with
+none. The recompute runs inside the backward as rank 0 runs it, so it is
+counted like any other op, its collectives included.
+
+The memory analysis (``memory`` in each result) is ``LocalTally``'s tally of
+the storages rank 0 allocates inside the step, each rounded up to the
+caching allocator's 512-byte blocks, from its allocation to its release
+(its Python storage dying): ``temp_bytes`` is the peak of the bytes alive at
+once, less ``output_bytes``, the bytes of the returned tensors whose
+storage the step allocated (the metrics, prefill's and decode's logits). A
+state updated in place is the arguments' storage and no output here; XLA,
+which compiles the reference's step without donation, counts the new state
+as output. Tensors autograd saves for the backward are alive until the
+backward frees them: they make the peak. ``code_bytes`` has no counterpart
+in an eager program (no compiled executable) and is not reported.
 
 The step runs on the torch path with ``moe_impl="einsum"``: the grouped
 matmul's plain version reads the group sizes to the host, which a meta
@@ -50,8 +67,9 @@ that does not divide holds its largest shard).
 
 The roofline denominators are NVIDIA's published H100 SXM figures (data
 sheet, dense): 989 TFLOP/s bf16 on the tensor cores and 3.35 TB/s of HBM3
-bandwidth, with 80 GB of HBM (a cell whose per-device argument bytes exceed
-80 GB is flagged, ``over_hbm``). The collective term divides the bytes by
+bandwidth, with 80 GB of HBM (a cell whose per-device argument bytes plus
+its peak of bytes allocated inside the step exceed 80 GB is flagged,
+``over_hbm``). The collective term divides the bytes by
 50 GB/s a direction per card: one ConnectX-7 NDR 400 Gb/s InfiniBand port
 per GPU, as in a DGX H100. Both production mesh axes span more than one
 8-card NVLink domain (``model`` = 16 at stride 1 spans two nodes), so the
@@ -61,7 +79,7 @@ direction (``NVLINK_BW``) is quoted, not used.
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --jobs 8        # all cells
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b \\
-        --shape train_4k --mesh single                                 # one cell
+        --shape train_4k --mesh single --remat dots_nobatch            # one cell
 
 Artifacts (one JSON per cell and mesh) go to ``build/dryrun_torch/``.
 """
@@ -78,7 +96,8 @@ import multiprocessing
 import os
 import time
 import traceback
-from dataclasses import dataclass, field
+import weakref
+from dataclasses import dataclass, field, replace
 from typing import Any, Optional, Union
 
 import torch
@@ -88,6 +107,7 @@ from torch.distributed.tensor import DTensor
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
+from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -97,6 +117,7 @@ from ..configs import (ARCH_IDS, SHAPES, ArchConfig, ShapeCell,
 from ..data.pipeline import batch_spec
 from ..distributed import sharding as shd
 from ..models import model as M
+from ..models import remat as R
 from ..models.layers import META
 from ..training import OptimConfig, TrainConfig, build_train_step
 from ..training.train import init_train_state, train_state_axes
@@ -137,6 +158,8 @@ _FAMILY_OF = {
 }
 #: ops of those namespaces that move no data between ranks
 _NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
+#: the CUDA caching allocator's block: every allocation rounds up to it
+ALLOC_BLOCK = 512
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +175,12 @@ def _tensors(tree) -> list:
     return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
 
 
+def _alloc_bytes(nbytes: int) -> int:
+    """The bytes the caching allocator holds for an allocation of
+    ``nbytes`` (none for an empty one)."""
+    return -(-nbytes // ALLOC_BLOCK) * ALLOC_BLOCK
+
+
 def _group_name(func, args, kwargs) -> str:
     if "group_name" in kwargs:
         return kwargs["group_name"]
@@ -164,13 +193,21 @@ class LocalTally(TorchDispatchMode):
     (``FlopCounterMode``'s table) and bytes (each op's tensor inputs and
     outputs, once each per op; an op that returns nothing writes the
     arguments it mutates) of every op on plain tensors, in total, by op and
-    by (shape, op); and the result bytes of every collective, by family
-    and by the group it runs on. An op on DTensors is returned to DTensor
-    (``NotImplemented``), which runs it as local ops and collectives that
-    come back here. On plain tensors that is every op."""
+    by (shape, op); the result bytes of every collective, by family and by
+    the group it runs on; and the bytes alive at once of the storages those
+    ops allocate (``live``, its high-water mark ``peak``): an op's output
+    whose storage is none of its inputs' and not seen before is an
+    allocation, counted until its storage is released. An op on DTensors is
+    returned to DTensor (``NotImplemented``), which runs it as local ops and
+    collectives that come back here. On plain tensors that is every op."""
 
     def __init__(self):
         super().__init__()
+        self.live = 0
+        self.peak = 0
+        #: each allocated storage alive -> (its bytes, a weak reference
+        #: whose callback releases it)
+        self._alive: dict = {}
         self.flops = 0
         self.total = 0
         self.by_op: collections.Counter = collections.Counter()
@@ -196,6 +233,7 @@ class LocalTally(TorchDispatchMode):
             if r is not NotImplemented:
                 return r
         out = func(*args, **kwargs)
+        self._allocated(out, (args, kwargs))
         if packet in flop_registry:
             self.flops += int(flop_registry[packet](*args, **kwargs,
                                                     out_val=out))
@@ -217,8 +255,38 @@ class LocalTally(TorchDispatchMode):
             self.by_shape[f"{dt}{list(o.shape)} {name}"] += b
         return out
 
+    def _allocated(self, out, inputs) -> None:
+        """Count the storages of ``out`` that are new: neither an input's
+        (a view, an in-place op) nor one counted before."""
+        given = {StorageWeakRef(t.untyped_storage())
+                 for t in _tensors(inputs)}
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            key = StorageWeakRef(st)
+            if key in given or key in self._alive:
+                continue
+            n = _alloc_bytes(st.nbytes())
+            # the Python storage lives as long as the storage itself
+            self._alive[key] = (n, weakref.ref(
+                st, functools.partial(self._released, key)))
+            self.live += n
+            self.peak = max(self.peak, self.live)
+
+    def _released(self, key, _ref) -> None:
+        n, _ = self._alive.pop(key)
+        self.live -= n
+
+    def allocated_bytes(self, tree) -> int:
+        """The bytes of the storages alive in ``tree`` that were allocated
+        under this tally, each once."""
+        keys = {StorageWeakRef((t._local_tensor if isinstance(t, DTensor)
+                                else t).untyped_storage())
+                for t in _tensors(tree)}
+        return sum(self._alive[k][0] for k in keys if k in self._alive)
+
     def _collective(self, func, args, kwargs):
         out = func(*args, **kwargs)
+        self._allocated(out, (args, kwargs))
         name = func.overloadpacket.__name__
         if name in _NOT_COLLECTIVES:
             return out
@@ -242,6 +310,10 @@ class Tally:
     collectives: dict = field(default_factory=dict)
     by_group: dict = field(default_factory=dict)
     seconds: float = 0.0
+    #: the most bytes allocated in the run and alive at once
+    peak_bytes: int = 0
+    #: the bytes of the returned tensors the run allocated
+    output_bytes: int = 0
 
     def collective_bytes(self) -> dict:
         """Bytes by family under the reference's keys, and their total."""
@@ -254,12 +326,14 @@ def count(fn, *args) -> Tally:
     """Run ``fn(*args)`` under ``LocalTally``."""
     t0 = time.perf_counter()
     with LocalTally() as lt:
-        fn(*args)
+        out = fn(*args)
+        output_bytes = lt.allocated_bytes(out)
     return Tally(flops=lt.flops, bytes=lt.total, by_op=dict(lt.by_op),
                  count_op=dict(lt.count_op), by_shape=dict(lt.by_shape),
                  collectives=dict(lt.collectives),
                  by_group=dict(lt.by_group),
-                 seconds=time.perf_counter() - t0)
+                 seconds=time.perf_counter() - t0, peak_bytes=lt.peak,
+                 output_bytes=output_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +416,15 @@ def prefill_step(cfg: ArchConfig, rules: Optional[dict] = None):
 
 def _cell(shape: Union[str, ShapeCell]) -> ShapeCell:
     return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def cell_config(cfg: ArchConfig, cell: ShapeCell,
+                remat: str = "dots") -> ArchConfig:
+    """``cfg`` as the cell's step runs it: a train cell under the
+    rematerialisation policy ``remat``, a serving cell under none (the
+    reference's ``lower_cell``)."""
+    R.check(remat)
+    return replace(cfg, remat=remat if cell.kind == "train" else "none")
 
 
 def input_specs(arch: str, shape: Union[str, ShapeCell],
@@ -449,11 +532,14 @@ def _run_step(cfg: ArchConfig, cell: ShapeCell, inputs: dict,
 
 
 def tally_cell(arch: str, shape: Union[str, ShapeCell],
-               cfg: Optional[ArchConfig] = None) -> Tally:
+               cfg: Optional[ArchConfig] = None,
+               remat: str = "dots") -> Tally:
     """Run the cell's step once on plain meta tensors (no mesh: every
-    ``constrain`` is the identity) and count it: the global count."""
-    cfg = cfg if cfg is not None else get_config(arch)
+    ``constrain`` is the identity), a train cell under ``remat``, and count
+    it: the global count."""
     cell = _cell(shape)
+    cfg = cell_config(cfg if cfg is not None else get_config(arch), cell,
+                      remat)
     return _run_step(cfg, cell, _cell_inputs(cfg, cell)[0], None)
 
 
@@ -461,7 +547,8 @@ def mesh_tally(cfg: ArchConfig, cell: ShapeCell, mesh: DeviceMesh,
                rules: dict) -> Tally:
     """Run the cell's step once as this rank of ``mesh``, every input a
     DTensor of meta shards placed by ``rules``, and count this rank's ops
-    and collectives (``Tally.by_group`` keyed by mesh axis name)."""
+    and collectives (``Tally.by_group`` keyed by mesh axis name). ``cfg``
+    runs as it is (``cell_config`` sets the remat)."""
     inputs, axes = _cell_inputs(cfg, cell)
     tally = _run_step(cfg, cell, _on_mesh(inputs, axes, rules, mesh), rules)
     axis_of = {mesh.get_group(i).group_name: name
@@ -498,17 +585,21 @@ def argument_bytes(inputs: dict, axes: dict, rules: dict, mesh) -> int:
 
 def count_cell(arch: str, shape: Union[str, ShapeCell], mesh, *,
                cfg: Optional[ArchConfig] = None,
-               tally: Optional[Tally] = None,
+               tally: Optional[Tally] = None, remat: str = "dots",
                verbose: bool = True) -> dict:
     """The counterpart of the reference's ``lower_cell``: the cell's step
-    counted as rank 0 of ``mesh`` and its roofline terms. ``mesh`` is a
+    counted as rank 0 of ``mesh``, a train cell under the rematerialisation
+    policy ``remat``, its roofline terms and its memory. ``mesh`` is a
     ``DeviceMesh`` (used as it is) or a ``MeshShape`` (a ``fake_mesh`` is
     made for the count); ``tally`` is the global count
-    (``tally_cell``'s, made when not given); ``cfg`` replaces the arch's
-    published config (a reduced one, in tests)."""
-    cfg = cfg if cfg is not None else get_config(arch)
+    (``tally_cell``'s under the same ``remat``, made when not given);
+    ``cfg`` replaces the arch's published config (a reduced one, in
+    tests)."""
     cell = _cell(shape)
-    tally = tally if tally is not None else tally_cell(arch, cell, cfg)
+    cfg = cell_config(cfg if cfg is not None else get_config(arch), cell,
+                      remat)
+    tally = tally if tally is not None else tally_cell(arch, cell, cfg,
+                                                       cfg.remat)
     rules = rules_for(cfg, mesh, cell)
     sizes = shd.mesh_axis_sizes(mesh)
     n_dev = math.prod(sizes.values())
@@ -540,17 +631,26 @@ def count_cell(arch: str, shape: Union[str, ShapeCell], mesh, *,
         "collective_bytes_per_dev": coll,
         "collective_bytes_by_axis": {a: float(local.by_group.get(a, 0))
                                      for a in sizes},
-        "memory": {"argument_bytes": arg, "state_bytes": state_bytes},
-        "over_hbm": arg > HBM_BYTES,
+        "memory": {"argument_bytes": arg, "state_bytes": state_bytes,
+                   "output_bytes": local.output_bytes,
+                   "temp_bytes": local.peak_bytes - local.output_bytes},
+        "over_hbm": arg + local.peak_bytes > HBM_BYTES,
         "terms_s": terms,
         "dominant": dominant,
         "model_flops": mf,
         "useful_flops_ratio": mf / max(local.flops * n_dev, 1.0),
         "count_s": round(tally.seconds + local.seconds, 2),
+        "remat": cfg.remat,
     }
     if verbose:
         print(_line(result), flush=True)
     return result
+
+
+def peak_bytes(res: dict) -> int:
+    """A result's peak of bytes allocated in the step: temporaries and
+    outputs."""
+    return res["memory"]["temp_bytes"] + res["memory"]["output_bytes"]
 
 
 def _line(res: dict) -> str:
@@ -565,8 +665,11 @@ def _line(res: dict) -> str:
             f"memory={t['memory_s'] * 1e3:9.3f}ms "
             f"coll={t['collective_s'] * 1e3:9.3f}ms "
             f"dom={res['dominant'].split('_')[0]:<10s} "
-            f"args/dev={res['memory']['argument_bytes'] / 1e9:8.3f}GB"
+            f"args/dev={res['memory']['argument_bytes'] / 1e9:8.3f}GB "
+            f"temp/dev={res['memory']['temp_bytes'] / 1e9:8.3f}GB "
+            f"peak/dev={peak_bytes(res) / 1e9:8.3f}GB"
             f"{' OVER HBM' if res['over_hbm'] else ''} "
+            f"remat={res['remat']} "
             f"count={res['count_s']:6.1f}s [{fam or 'no collectives'}]")
 
 
@@ -575,13 +678,15 @@ def _line(res: dict) -> str:
 # ---------------------------------------------------------------------------
 
 
-def _count_one(arch: str, shape: str, meshes: tuple) -> list[dict]:
+def _count_one(arch: str, shape: str, meshes: tuple,
+               remat: str = "dots") -> list[dict]:
     """One cell: its global count, then its count on each named mesh
-    ("single": (16, 16), "multipod": (2, 16, 16)); a failure is recorded
-    in the cell's result, with its traceback."""
+    ("single": (16, 16), "multipod": (2, 16, 16)), a train cell under
+    ``remat``; a failure is recorded in the cell's result, with its
+    traceback."""
     out = []
     try:
-        tally = tally_cell(arch, shape)
+        tally = tally_cell(arch, shape, remat=remat)
     except Exception as e:  # noqa: BLE001 — record, keep going
         return [{"arch": arch, "shape": shape, "mesh": m, "status": "error",
                  "error": repr(e), "traceback": traceback.format_exc()}
@@ -589,7 +694,8 @@ def _count_one(arch: str, shape: str, meshes: tuple) -> list[dict]:
     for m in meshes:
         mesh = make_production_mesh(multi_pod=(m == "multipod"))
         try:
-            res = count_cell(arch, shape, mesh, tally=tally, verbose=False)
+            res = count_cell(arch, shape, mesh, tally=tally, remat=remat,
+                             verbose=False)
             res["status"] = "ok"
         except Exception as e:  # noqa: BLE001 — record, keep going
             res = {"arch": arch, "shape": shape, "mesh": m,
@@ -605,18 +711,19 @@ def _count_star(job) -> list[dict]:
 
 
 def run_cells(archs, shapes, meshes, out_dir: str = ARTIFACT_DIR,
-              jobs: int = 1) -> list[dict]:
+              jobs: int = 1, remat: str = "dots") -> list[dict]:
     """Every applicable (arch, shape), counted on each mesh ("single",
-    "multipod"), over ``jobs`` worker processes (spawned; each cell's counts
-    in one worker, each count on a fake group of its own). Prints one line a
-    cell and mesh as results arrive and writes each as JSON."""
+    "multipod"), train cells under ``remat``, over ``jobs`` worker
+    processes (spawned; each cell's counts in one worker, each count on a
+    fake group of its own). Prints one line a cell and mesh as results
+    arrive and writes each as JSON."""
     os.makedirs(out_dir, exist_ok=True)
     work = []
     for arch in archs:
         cfg = get_config(arch)
         for shape in shapes:
             if cell_applicable(cfg, shape):
-                work.append((arch, shape, tuple(meshes)))
+                work.append((arch, shape, tuple(meshes), remat))
             else:
                 print(f"[dryrun] {arch:>24s} {shape:<12s} SKIP "
                       f"(full-attention arch)")
@@ -655,6 +762,8 @@ def main() -> None:
                     choices=["single", "multipod", "both"])
     ap.add_argument("--jobs", type=int, default=1,
                     help="worker processes (one cell at a time each)")
+    ap.add_argument("--remat", default="dots", choices=list(R.POLICIES),
+                    help="rematerialisation policy of the train cells")
     ap.add_argument("--out", default=ARTIFACT_DIR)
     args = ap.parse_args()
     archs = [args.arch] if args.arch else list(ARCH_IDS)
@@ -663,7 +772,7 @@ def main() -> None:
               else [args.mesh])
     t0 = time.perf_counter()
     results = run_cells(archs, shapes, meshes, out_dir=args.out,
-                        jobs=args.jobs)
+                        jobs=args.jobs, remat=args.remat)
     ok = sum(1 for r in results if r.get("status") == "ok")
     print(f"[dryrun] {ok}/{len(results)} cells counted OK in "
           f"{time.perf_counter() - t0:.1f} s with {args.jobs} job(s)")

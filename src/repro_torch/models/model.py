@@ -14,7 +14,10 @@ absolute sinusoidal positions (added to the embeddings, and no RoPE).
 Params are plain dicts of tensors with the JAX package's names; the layer
 groups of ``params["blocks"]`` are stacked along a leading group axis, as
 ``jax.lax.scan`` wants them there, and run here as a Python loop
-(``scan_layers`` and ``remat`` have no numeric effect). ``LM`` is a thin
+(``scan_layers`` has no numeric effect). ``forward`` checkpoints each group
+under ``cfg.remat`` when grad mode is on (``models.remat``: "full", "dots"
+or "dots_nobatch", the reference's ``jax.checkpoint`` policies);
+``prefill`` and ``decode_step`` never do, as in the reference. ``LM`` is a thin
 ``nn.Module`` veneer over the functions.
 
 ``moe_impl`` picks the MoE dispatch of attention blocks with experts:
@@ -41,6 +44,7 @@ whose DTensor pad raises in torch 2.11) through ``placement.per_shard``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -51,7 +55,7 @@ from .. import resolve_device
 from ..configs import ArchConfig
 from ..placement import on_mesh_of, per_shard
 from . import attention as attn
-from . import layers, moe, ssm
+from . import layers, moe, remat, ssm
 from .layers import Constrain, Tensor, no_constraint
 
 # ---------------------------------------------------------------------------
@@ -154,13 +158,16 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(like, leaves) -> dict:
     """A tree shaped like ``like`` holding ``leaves`` (in ``tree_leaves``'
     order)."""
-    it = iter(leaves)
+    return _fill(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(like)
+
+def _fill(like, it):
+    # a module-level function: a nested one that calls itself is a
+    # reference cycle, which would keep ``leaves`` (a step's gradients)
+    # alive until the garbage collector runs
+    if isinstance(like, dict):
+        return {k: _fill(like[k], it) for k in sorted(like)}
+    return next(it)
 
 
 # ---------------------------------------------------------------------------
@@ -243,36 +250,51 @@ def _apply_shared_attn(params: dict, cfg: ArchConfig, x: Tensor, x0: Tensor,
                           act=cfg.mlp_act)
 
 
+def _run_group(params: dict, cfg: ArchConfig, x: Tensor,
+               aux: Optional[Tensor], gparams: dict, x0: Tensor,
+               gcache: Optional[dict], mix: Callable, moe_impl: str,
+               constrain: Constrain) -> tuple[Tensor, Optional[Tensor]]:
+    """One layer group, the reference's ``group_body``: zamba2's shared
+    block (over ``x`` and the embeddings ``x0``), then the group's blocks.
+    Returns (x, aux plus the group's MoE aux loss; None without experts)."""
+    if cfg.shared_attn_every:
+        sp = params["shared_attn"]
+        sc = gcache["shared"] if gcache is not None else None
+        x = _apply_shared_attn(sp, cfg, x, x0,
+                               lambda h: mix("shared", sp, sc, h))
+    for i, kind in enumerate(group_pattern(cfg)):
+        bp = gparams[str(i)]
+        bc = gcache[str(i)] if gcache is not None else None
+        x, a = _apply_block(bp, cfg, kind, x,
+                            lambda h: mix(kind, bp, bc, h), moe_impl,
+                            constrain)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
 def _run_blocks(params: dict, cfg: ArchConfig, x: Tensor, mix: Callable,
                 moe_impl: str, cache: Optional[dict] = None,
-                constrain: Constrain = no_constraint
-                ) -> tuple[Tensor, Optional[Tensor]]:
-    """Every block in order, zamba2's shared block at the head of each
-    group (over the block input ``x`` and the embeddings ``x0``);
-    ``mix(kind, block_params, block_cache, h)`` runs a block's mixer, with
+                constrain: Constrain = no_constraint,
+                policy: str = "none") -> tuple[Tensor, Optional[Tensor]]:
+    """Every layer group in order (``_run_group``), each under the
+    rematerialisation ``policy`` (``models.remat``); ``mix(kind,
+    block_params, block_cache, h)`` runs a block's mixer, with
     ``block_cache`` a view into ``cache`` (None without one). Returns (x,
     the summed MoE aux loss, None without experts)."""
     aux = None
     x0 = x
-    # one unbind, whose backward stacks the groups' gradients once (indexing
-    # a group would add a zeroed gradient of the whole stack for each group)
+    # one unbind, outside the checkpointed groups, whose backward stacks
+    # the groups' gradients once (indexing a group would add a zeroed
+    # gradient of the whole stack for each group)
     groups = tree_map(lambda p: p.unbind(0), params["blocks"])
+    group = remat.checkpointed(
+        functools.partial(_run_group, params, cfg, mix=mix,
+                          moe_impl=moe_impl, constrain=constrain), policy)
     for gi in range(num_groups(cfg)):
         gparams = tree_map(lambda p: p[gi], groups)
         gcache = tree_map(lambda c: c[gi], cache) if cache is not None else None
-        if cfg.shared_attn_every:
-            sp = params["shared_attn"]
-            sc = gcache["shared"] if gcache is not None else None
-            x = _apply_shared_attn(sp, cfg, x, x0,
-                                   lambda h: mix("shared", sp, sc, h))
-        for i, kind in enumerate(group_pattern(cfg)):
-            bp = gparams[str(i)]
-            bc = gcache[str(i)] if gcache is not None else None
-            x, a = _apply_block(bp, cfg, kind, x,
-                                lambda h: mix(kind, bp, bc, h), moe_impl,
-                                constrain)
-            if a is not None:
-                aux = a if aux is None else aux + a
+        x, aux = group(x, aux, gparams, x0, gcache)
     return x, aux
 
 
@@ -408,8 +430,12 @@ def forward(params: dict, cfg: ArchConfig, tokens: Tensor,
     """Causal LM forward. tokens: [B, S] int -> (logits [B,S,V] f32, aux).
     ``frontend`` [B, F, frontend_dim] (vision and audio configs) fills the
     first F positions. ``aux`` is the MoE load-balance loss summed over the
-    layers (f32; zero without experts)."""
+    layers (f32; zero without experts). With grad mode on, each layer group
+    runs under the rematerialisation policy ``cfg.remat``
+    (``models.remat``), as the reference's ``jax.checkpoint`` does; with it
+    off (serving), the groups run as they are."""
     _check_moe_impl(moe_impl)
+    remat.check(cfg.remat)
     positions = _positions(tokens)
     x = _embed_input(params, cfg, tokens, frontend, positions, constrain)
 
@@ -419,7 +445,9 @@ def forward(params: dict, cfg: ArchConfig, tokens: Tensor,
                                  constrain)
         return attn.attend_full(bp["attn"], attn_cfg_for(cfg, kind), h,
                                 positions, attn_impl, constrain)
-    x, aux = _run_blocks(params, cfg, x, mix, moe_impl, constrain=constrain)
+    x, aux = _run_blocks(params, cfg, x, mix, moe_impl, constrain=constrain,
+                         policy=cfg.remat if torch.is_grad_enabled()
+                         else "none")
     if aux is None:
         aux = on_mesh_of(x, torch.zeros((), dtype=torch.float32,
                                         device=tokens.device))

@@ -153,7 +153,9 @@ def test_count_cell_on_meta(arch, kind):
                                   "qwen3-moe-235b-a22b"])
 def test_counted_flops_equal_the_real_step(arch):
     """The meta count of a train cell equals FlopCounterMode's count of
-    the same step on real CPU tensors, and the state bytes the state's."""
+    the same step on real CPU tensors (under the dry-run's default remat,
+    "dots", whose recompute of mamba2's depthwise conv counts), and the
+    state bytes the state's."""
     from repro_torch.data import SyntheticLMData
     from repro_torch.models import model as M
     from repro_torch.training import OptimConfig, TrainConfig, Trainer
@@ -161,6 +163,8 @@ def test_counted_flops_equal_the_real_step(arch):
     cell = tconfigs.ShapeCell("smoke_train", 32, 4, "train")
     res = D.count_cell(arch, cell, MeshShape(("data", "model"), (1, 1)),
                        cfg=cfg, verbose=False)
+    assert res["remat"] == "dots"
+    cfg = dataclasses.replace(cfg, remat=res["remat"])
     t = Trainer(cfg=cfg, tcfg=TrainConfig(optim=OptimConfig()),
                 data=iter(SyntheticLMData(vocab_size=512, seq_len=32,
                                           global_batch=4)),

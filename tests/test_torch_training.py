@@ -279,7 +279,14 @@ def _mid_run(state, seed=7):
 
 @pytest.mark.parametrize("arch", STEP_ARCHS)
 def test_train_step_matches_the_reference(arch):
-    jcfg, tcfg = _cfgs(arch)
+    check_train_step(arch)
+
+
+def check_train_step(arch, remat="none"):
+    """The port's gradients, metrics and one train step of ``arch`` under
+    the rematerialisation policy ``remat`` against the JAX package's under
+    the same ``cfg.remat``, from one mid-run state and batch."""
+    jcfg, tcfg = (dataclasses.replace(c, remat=remat) for c in _cfgs(arch))
     opt = dict(learning_rate=1e-2, warmup_steps=2, total_steps=20)
     jt = JT.TrainConfig(optim=JO.OptimConfig(**opt))
     tt = TT.TrainConfig(optim=TO.OptimConfig(**opt))
