@@ -160,16 +160,26 @@ Phases, each of which raises (exit code != 0) on any failure:
    phase 5, the logits against the float32 torch forward;
 11. the device mesh and the dry-run, under an NCCL process group of one
    rank (a ``HashStore``), destroyed at the end: gemma2-2b at phase 10's
-   config for 3 steps through ``Trainer`` on the one-device
+   config for 5 steps through ``Trainer`` on the one-device
    ``DeviceMesh("cuda", (1, 1), ("data", "model"))`` with ``rules_for``'s
-   table, its metrics and final params equal bit for bit to a mesh-less
-   ``Trainer``'s of the same seed and steps under phase 10's deterministic
-   settings (step ms beside phase 10's); the dry-run's argument bytes at
-   that mesh equal to the Trainer's state and batch on the card, and its
-   counted FLOPs to ``FlopCounterMode``'s count of a fourth real step
-   (model_flops over them printed); mamba2-130m's step-2 checkpoint from
+   table, its step graphed (``GraphedTrainStep`` on DTensors: two eager
+   warm-up steps, a capture, two replays), its metrics and final params
+   equal bit for bit to a mesh-less ``Trainer``'s and to an eager mesh
+   run's of the same seed and steps under phase 10's deterministic
+   settings (replay ms beside the mesh-less replay's, the graph's pool, the
+   replays' launches); the dry-run's argument bytes at that mesh equal to
+   the Trainer's state and batch on the card, and its counted FLOPs to
+   ``FlopCounterMode``'s count of a sixth step run eagerly (model_flops
+   over them printed); a one-rank NCCL ``all_reduce`` captured in a graph
+   (``capture_error_mode`` "global", as the train step) and replayed on new
+   data, a profiled window of replays naming its NCCL kernel; a
+   smoke-width qwen3-moe step whose state is placed ``Shard`` on the
+   size-1 "model" axis by hand, graphed, bit-equal to its eager step, with
+   the NCCL kernels of one replay counted; mamba2-130m's step-2 checkpoint
+   from
    phase 10 (written with no mesh) restored onto the mesh through
-   ``restore(mesh=..., placements=...)`` and resumed, its trajectory equal to
+   ``restore(mesh=..., placements=...)`` and resumed (graphed: a capture
+   over the restored shards), its trajectory equal to
    phase 10's uninterrupted run bit for bit and its final state to phase
    10's last checkpoint, and its params, gathered with ``full_tensor()``,
    serving phase 10's 1024-token prefill through the SSD kernel with logits
@@ -186,7 +196,7 @@ Phases, each of which raises (exit code != 0) on any failure:
    and the cells whose arguments plus peak exceed 80 GB; the phase fails
    if any of the 66 counts fails. No train or mesh run launches a
    forward kernel (the mesh step's AdamW kernel runs on each rank's local
-   shards, the mesh-less step is graphed); only the restored prefill adds
+   shards, in the graph's replays too); only the restored prefill adds
    SSD launches;
 12. the fleet, run right after phase 5 on its handles (detector and
    verifier at smoke width, context at published width cut to 4 layers,
@@ -606,6 +616,28 @@ def kernel_rows(torch, fn):
             if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
     return rows, out
+
+
+#: profiles of one graph replay: a replay runs the same kernels each time,
+#: so a profile that misses some of them lost their records (the profiler
+#: has dropped a replay's kernels); it is taken again, up to this many in all
+PROFILE_TRIES = 3
+
+
+def profiled_replay(torch, fn, check, label: str):
+    """``check(rows)`` on ``kernel_rows`` of ``fn``, a graph replay; a check
+    that fails is logged and made again on a new profile of the same replay,
+    up to ``PROFILE_TRIES`` in all. Returns ``check``'s result."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        rows, _ = kernel_rows(torch, fn)
+        try:
+            return check(rows)
+        except AssertionError as e:
+            if attempt == PROFILE_TRIES:
+                raise
+            log(f"[profile] {label}: profile {attempt} of a graph replay "
+                f"held {sum(r[1] for r in rows)} kernels and failed its "
+                f"check ({e}); profiling the same replay again")
 
 
 def check_ssd_launches(rows, calls: int, label: str) -> None:
@@ -1398,19 +1430,22 @@ def fleet_phase(torch, handles: dict, card: str) -> dict:
                 s = shapes.get(m, (32,))[0]
                 tokens = torch.zeros((1, s), dtype=torch.int32, device="cuda")
                 captured = len(h.fn.graphs)
-                rows, _ = kernel_rows(torch, lambda: h.fn(h.params, tokens))
-                if len(h.fn.graphs) != captured:
-                    raise AssertionError(f"fleet {node.name} {m}: a call "
-                                         f"after registration captured again")
                 expect = expected_calls(torch, M, h.cfg, s)
                 heads = {}
                 for c in expect:
                     if c[0] == "flash":
                         heads[c[1][3]] = heads.get(c[1][3], 0) + 1
                 label = f"{node.name} {m} S={s} (graph replay)"
-                check_flash_launches(rows, heads, label, "fleet")
-                by_name = check_ssd_launches(
-                    rows, sum(c[0] == "ssd" for c in expect), label)
+
+                def check(rows):
+                    check_flash_launches(rows, heads, label, "fleet")
+                    return check_ssd_launches(
+                        rows, sum(c[0] == "ssd" for c in expect), label)
+                by_name = profiled_replay(
+                    torch, lambda: h.fn(h.params, tokens), check, label)
+                if len(h.fn.graphs) != captured:
+                    raise AssertionError(f"fleet {node.name} {m}: a call "
+                                         f"after registration captured again")
                 log(f"[fleet] {label}: ssd kernels by name {by_name}")
     log(f"[fleet] phase {time.perf_counter() - t0:.1f} s; {card}")
     return launches
@@ -3556,8 +3591,15 @@ def train_phase(torch, card: str) -> tuple[dict, float, dict, dict]:
 # ---------------------------------------------------------------------------
 
 #: phase 11's mesh train run: phase 10's gemma2-2b run, the same optimizer
-#: schedule, cut to its first steps
-MESH_TRAIN_STEPS = 3
+#: schedule, cut to its first steps (two warm-up steps, the capture, two
+#: replays)
+MESH_TRAIN_STEPS = 5
+#: the captured NCCL all_reduce: (floats, replays on new data, replays in
+#: the profiled window: late in the script the profiler drops the first
+#: kernels of a window, and one replay's one kernel showed no record)
+MESH_NCCL = (1 << 20, 3, 20)
+#: the smoke-width step whose state is placed Shard by hand: (arch, steps)
+MESH_BY_HAND = ("qwen3-moe-235b-a22b", 4)
 
 
 class deterministic:
@@ -3593,15 +3635,23 @@ def state_nbytes(tree) -> int:
 
 def mesh_train(torch, card: str, mesh, phase10_ms: float) -> None:
     """gemma2-2b at phase 10's config through ``Trainer(mesh=..., rules=
-    rules_for(...))`` on the one-device mesh: its losses, metrics and final
-    params equal, bit for bit, a mesh-less ``Trainer``'s of the same seed
-    over the same steps under phase 10's deterministic settings (the
-    mesh-less run first, its params kept on the host, then freed). Then
-    the two ties to the dry-run at this mesh: its argument bytes against
-    the Trainer's state and batch on the card, and its counted FLOPs
-    against ``FlopCounterMode``'s count of one more real step."""
+    rules_for(...))`` on the one-device mesh, which graphs its step
+    (``GraphedTrainStep`` on DTensors: steps 1-2 eager warm-up steps, step 3
+    captured and replayed, 4-5 replays): its losses, metrics and final
+    params equal, bit for bit, a mesh-less ``Trainer``'s (graphed too) and
+    an eager mesh run's (the Trainer's step function unwrapped) of the same
+    seed over the same steps under phase 10's deterministic settings (each
+    run's params kept on the host, the run freed before the next). Prints
+    the replays' ms beside the mesh-less replays', the graph's pool and the
+    launches the replays added. Then the two ties to the dry-run at this
+    mesh: its argument bytes against the Trainer's state and batch on the
+    card, and its counted FLOPs against ``FlopCounterMode``'s count of one
+    more step, run eagerly (``GraphedTrainStep.eager``: a replay dispatches
+    no op to count)."""
+    import statistics
     from torch.distributed.tensor import DTensor
     from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import graphs
     from repro_torch.configs import ShapeCell, get_config
     from repro_torch.data import SyntheticLMData
     from repro_torch.launch import dryrun as D
@@ -3611,61 +3661,101 @@ def mesh_train(torch, card: str, mesh, phase10_ms: float) -> None:
 
     arch, seq, batch, steps10 = TRAIN_FULL_WIDTH
     steps = MESH_TRAIN_STEPS
+    warm = graphs.WARMUP_CALLS + 1          # warm-up steps and the capture
     cfg = get_config(arch)
     tcfg = TrainConfig(optim=OptimConfig(learning_rate=3e-3,
                                          warmup_steps=steps10 // 10,
                                          total_steps=steps10))
     cell = ShapeCell(f"train_{seq}", seq, batch, "train")
     rules = rules_for(cfg, mesh, cell)
+    n_leaf = n_leaves(M.param_spec(cfg))
 
-    def trainer(m):
+    def trainer(m, graphed=True):
         data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq,
                                global_batch=batch, seed=0)
         t = Trainer(cfg=cfg, tcfg=tcfg, data=iter(data), mesh=m,
                     rules=rules if m is not None else None, log_every=1000,
                     device="cuda")
+        if not isinstance(t._step_fn, graphs.GraphedTrainStep):
+            raise AssertionError(f"{arch}: Trainer on CUDA (mesh {m}) is "
+                                 f"not graphed")
+        if not graphed:
+            t._step_fn = t._step_fn.eager
         t.init_or_resume(resume="never")
         return t
 
+    def host_params(t):
+        return {n: (x.full_tensor() if isinstance(x, DTensor) else x).cpu()
+                for n, x in flat_tree(t.state["params"])}
+
+    def held(label, t, hist):
+        if hist != want_hist:
+            raise AssertionError(f"{arch}: {label} metrics {hist}, "
+                                 f"mesh-less {want_hist}")
+        for n, x in host_params(t).items():
+            if not torch.equal(x, want[n]):
+                raise AssertionError(f"{arch}: {label} param {n} differs "
+                                     f"from the mesh-less run's")
+
     torch.cuda.empty_cache()
-    n_leaf = n_leaves(M.param_spec(cfg))
     with train_launches(f"{arch} mesh-less training", adamw=steps * n_leaf), \
             deterministic() as det0:
         plain = trainer(None)
         want_hist = plain.run(steps)
     plain_ms = [t * 1e3 for t in plain.straggler.times]
-    want = {n: x.cpu() for n, x in flat_tree(plain.state["params"])}
+    want = host_params(plain)
     del plain
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    with train_launches(f"{arch} mesh training", adamw=steps * n_leaf), \
-            deterministic() as det1:
-        tr = trainer(mesh)
+    with train_launches(f"{arch} eager mesh training",
+                        adamw=steps * n_leaf), deterministic() as det1:
+        tr = trainer(mesh, graphed=False)
         hist = tr.run(steps)
-    peak = torch.cuda.max_memory_allocated()
-    mesh_ms = [t * 1e3 for t in tr.straggler.times]
-    leaves = flat_tree(tr.state["params"])
-    if not all(isinstance(x, DTensor) for _, x in leaves):
-        raise AssertionError(f"{arch}: the mesh Trainer's params are not "
+    eager_ms = [t * 1e3 for t in tr.straggler.times]
+    if not all(isinstance(x, DTensor) for _, x in flat_tree(tr.state)):
+        raise AssertionError(f"{arch}: the mesh Trainer's state is not "
                              f"DTensors")
-    if hist != want_hist:
-        raise AssertionError(f"{arch}: mesh metrics {hist}, mesh-less "
-                             f"{want_hist}")
-    for n, x in leaves:
-        if not torch.equal(x.full_tensor().cpu(), want[n]):
-            raise AssertionError(f"{arch}: mesh param {n} differs from the "
-                                 f"mesh-less run's")
+    held("eager mesh", tr, hist)
+    del tr
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with train_launches(f"{arch} graphed mesh training",
+                        adamw=steps * n_leaf), deterministic() as det2:
+        tr = trainer(mesh)
+        tr.run(warm)
+        before = kernel_counts()
+        hist = tr.run(steps)
+        after = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    replay_launches = {k: after[k] - before[k] for k in after
+                       if after[k] != before[k]}
+    if len(tr._step_fn.graphs) != 1 or replay_launches != {
+            "adamw": (steps - warm) * n_leaf}:
+        raise AssertionError(f"{arch}: {len(tr._step_fn.graphs)} mesh "
+                             f"graphs, the replays launched "
+                             f"{replay_launches}")
+    held("graphed mesh", tr, hist)
+    mesh_ms = [t * 1e3 for t in tr.straggler.times]
+    pool = graph_pool_bytes(torch, tr._step_fn)
     del want
+    replay_ms = statistics.median(mesh_ms[warm:])
+    plain_replay_ms = statistics.median(plain_ms[warm:])
     log(f"[mesh] {arch} (published config, bf16 compute) through Trainer on "
         f"the one-device DeviceMesh {tuple(mesh.shape)} "
         f"{mesh.mesh_dim_names}, rules_for the {seq} x {batch} cell, batch "
         f"{batch} x {seq}, {steps} steps under deterministic algorithms: "
-        f"losses {[m['loss'] for m in hist]} equal the mesh-less Trainer's "
-        f"bit for bit, every metric and the final params too; ops without "
-        f"a deterministic kernel: mesh-less {det0.nondet}, mesh "
-        f"{det1.nondet}; step ms mesh {mesh_ms}, mesh-less (this phase) "
-        f"{plain_ms}, phase 10's median {phase10_ms}; mesh run peak memory "
-        f"{peak} bytes; {card}")
+        f"the graphed mesh step (steps 1-{graphs.WARMUP_CALLS} eager warm-up, "
+        f"step {warm} captured and replayed, then replays) and the eager mesh "
+        f"step both equal the mesh-less Trainer's bit for bit, losses "
+        f"{[m['loss'] for m in hist]}, every metric and the final params; "
+        f"ops without a deterministic kernel: mesh-less {det0.nondet}, eager "
+        f"mesh {det1.nondet}, graphed mesh {det2.nondet}; step ms graphed "
+        f"mesh {mesh_ms}, eager mesh {eager_ms}, mesh-less graphed (this "
+        f"phase) {plain_ms}; replay ms (median of steps {warm + 1}-{steps}) "
+        f"mesh {replay_ms} against mesh-less {plain_replay_ms} (ratio "
+        f"{replay_ms / plain_replay_ms}), phase 10's median {phase10_ms}; "
+        f"graph pool {pool} bytes, graphed mesh run peak memory {peak} "
+        f"bytes; the {steps - warm} replays launched {replay_launches}; "
+        f"{card}")
 
     # the Trainer's step, under its config's remat ("none")
     res = D.count_cell(arch, cell, mesh, remat=cfg.remat, verbose=False)
@@ -3676,9 +3766,13 @@ def mesh_train(torch, card: str, mesh, phase10_ms: float) -> None:
         raise AssertionError(f"{arch}: dry-run argument bytes "
                              f"{res['memory']}, the card's state {have} and "
                              f"batch {batch_bytes}")
+    # the graph's pool back to the allocator before an eager step's
+    # activations: both would not fit beside the state
+    tr._step_fn.graphs.clear()
+    torch.cuda.empty_cache()
     with train_launches(f"{arch} counted mesh step", adamw=n_leaf), \
             FlopCounterMode(display=False) as fc:
-        tr.run(steps + 1)
+        tr._step_fn.eager(tr.state, tr._put(next(tr.data)))
     real = fc.get_total_flops()
     if real != res["flops"]:
         raise AssertionError(f"{arch}: dry-run FLOPs {res['flops']}, "
@@ -3693,20 +3787,153 @@ def mesh_train(torch, card: str, mesh, phase10_ms: float) -> None:
         f"bytes {res['memory']['argument_bytes']} = the Trainer's state "
         f"{have} + the batch {batch_bytes}; counted FLOPs of a step "
         f"{res['flops']} (global) and {res['flops_per_dev']} (rank 0 of the "
-        f"mesh) = FlopCounterMode's count of step {steps + 1} on the card "
-        f"{real}, no collective bytes; model_flops / counted "
+        f"mesh) = FlopCounterMode's count of an eager step {steps + 1} on "
+        f"the card {real}, no collective bytes; model_flops / counted "
         f"(useful_flops_ratio) {res['useful_flops_ratio']}; the dry-run's "
         f"terms compute {res['terms_s']['compute_s'] * 1e3} ms, memory "
-        f"{res['terms_s']['memory_s'] * 1e3} ms against step ms {mesh_ms}")
+        f"{res['terms_s']['memory_s'] * 1e3} ms against replay ms "
+        f"{replay_ms}")
     del tr
     torch.cuda.empty_cache()
+
+
+def nccl_kernels(rows) -> list:
+    """The profiled kernels (``kernel_rows``' rows) that are NCCL's."""
+    return [r for r in rows if "nccl" in r[2].lower()
+            or "onerank" in r[2].lower()]
+
+
+def mesh_nccl_capture(torch, mesh) -> None:
+    """A one-rank NCCL ``all_reduce`` (AVG: over one rank the data itself,
+    and a kernel of NCCL's own) made eagerly (the communicator) and then
+    captured in a CUDA graph in the train step's ``capture_error_mode``
+    "global", with the process group's watchdog running; each of
+    ``MESH_NCCL``'s replays on new data gives that data back, and a
+    profiled window of replays names their NCCL kernel."""
+    import torch.distributed as dist
+    n, reps, profiled = MESH_NCCL
+    group = mesh.get_group(0)
+    x = torch.zeros(n, device="cuda")
+    dist.all_reduce(x, op=dist.ReduceOp.AVG, group=group)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(g, stream=side, capture_error_mode="global"):
+        dist.all_reduce(x, op=dist.ReduceOp.AVG, group=group)
+    torch.cuda.current_stream().wait_stream(side)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(reps):
+        new = torch.randn(n, device="cuda", generator=gen)
+        x.copy_(new)
+        g.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(x, new):
+            raise AssertionError("a replayed NCCL all_reduce did not give "
+                                 "its new data back")
+    def check(rows):
+        if not nccl_kernels(rows):
+            raise AssertionError(f"{profiled} profiled replays of the "
+                                 f"captured all_reduce ran no NCCL kernel: "
+                                 f"{rows}")
+        return rows
+
+    def replays():
+        for _ in range(profiled):
+            g.replay()
+    rows = profiled_replay(torch, replays, check, "captured all_reduce")
+    log(f"[mesh] a one-rank NCCL all_reduce (AVG) of {n} floats captured in "
+        f"a CUDA graph (capture_error_mode global, the watchdog running) and "
+        f"replayed {reps} times on new data gives that data back; "
+        f"{profiled} profiled replays ran "
+        f"{[(c, k[:80]) for _, c, k in rows]}")
+    del g, x
+
+
+def mesh_by_hand(torch, mesh) -> None:
+    """A smoke-width float32 step (accum 2, int8 compression) of
+    ``MESH_BY_HAND``'s arch whose state is placed ``Shard`` along each
+    leaf's last dimension on the size-1 "model" axis by hand (bypassing
+    ``placements_for``, which places it ``Replicate()``), its batch
+    ``Shard(0)`` on "data": the graphed step (``GraphedTrainStep``) equals
+    the eager step bit for bit, metrics and state, over its steps; prints
+    how many NCCL kernels one profiled replay launched (DTensor issues no
+    collective over a mesh axis of size 1)."""
+    import dataclasses
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch import graphs
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import CompressionConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.training import (OptimConfig, TrainConfig,
+                                      build_train_step, init_train_state)
+
+    arch, steps = MESH_BY_HAND
+    cfg = dataclasses.replace(smoke_config(arch), vocab_size=128,
+                              dtype="float32")
+    tcfg = TrainConfig(optim=OptimConfig(learning_rate=1e-2, warmup_steps=2,
+                                         total_steps=20),
+                       accum=2, compression=CompressionConfig())
+    rules = rules_for(cfg, mesh)
+
+    def by_hand(tree):
+        if isinstance(tree, dict):
+            return {k: by_hand(v) for k, v in tree.items()}
+        return [Replicate(),
+                Shard(tree.ndim - 1) if tree.ndim >= 2 else Replicate()]
+
+    def state():
+        s = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, tcfg, "cuda")
+        return shd.distribute_tree(s, mesh, by_hand(s))
+
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=16,
+                           global_batch=4, seed=3)
+    batches = [{k: distribute_tensor(torch.from_numpy(v).cuda(), mesh,
+                                     [Shard(0), Replicate()])
+                for k, v in data.batch(i).items()} for i in range(steps)]
+    eager = build_train_step(cfg, tcfg, rules)
+    step = graphs.GraphedTrainStep(build_train_step(cfg, tcfg, rules))
+    want, got = state(), state()
+    rows = None
+    with deterministic():
+        for i, b in enumerate(batches):
+            _, mw = eager(want, b)
+            if i == steps - 1:          # a replay, profiled
+                rows, (_, mg) = kernel_rows(torch, lambda: step(got, b))
+            else:
+                _, mg = step(got, b)
+            if {k: float(v.full_tensor()) for k, v in mg.items()} != \
+                    {k: float(v.full_tensor()) for k, v in mw.items()}:
+                raise AssertionError(f"{arch} by hand: step {i + 1}'s "
+                                     f"graphed metrics differ from the eager")
+    for (n, a), (_, c) in zip(flat_tree(shd.full_tree(got)),
+                              flat_tree(shd.full_tree(want))):
+        if not torch.equal(a, c):
+            raise AssertionError(f"{arch} by hand: graphed state {n} "
+                                 f"differs from the eager step's")
+    if len(step.graphs) != 1 or steps <= graphs.WARMUP_CALLS + 1:
+        raise AssertionError(f"{arch} by hand: {len(step.graphs)} graphs "
+                             f"over {steps} steps")
+    nccl = nccl_kernels(rows)
+    log(f"[mesh] {arch} (smoke width, float32, accum 2, int8 compression), "
+        f"its state placed Shard on the size-1 'model' axis by hand: "
+        f"{steps} graphed steps ({graphs.WARMUP_CALLS} eager warm-up, a "
+        f"capture, replays) equal the eager mesh step bit for bit, metrics "
+        f"and state; one profiled replay ran {sum(r[1] for r in rows)} "
+        f"kernels, of them {sum(r[1] for r in nccl)} NCCL's "
+        f"{[k[:60] for _, _, k in nccl]}")
 
 
 def mesh_restart(torch, mesh, handoff: dict) -> dict:
     """Phase 10's mamba2-130m run resumed on the mesh: its step-``every``
     checkpoint, written without a mesh, restored onto the mesh through
     ``Trainer(mesh=...)`` (``restore(mesh=..., placements=...)``) and run to
-    the end under deterministic algorithms: metrics equal to phase 10's
+    the end, graphed (two warm-up steps, then a capture over the restored
+    local shards), under deterministic algorithms: metrics equal to phase
+    10's
     uninterrupted run bit for bit, and the final state to phase 10's final
     checkpoint. The params, gathered with ``full_tensor()``, serve phase 10's
     1024-token prompt through the SSD kernel: logits equal phase 10's
@@ -3753,6 +3980,9 @@ def mesh_restart(torch, mesh, handoff: dict) -> dict:
                 raise AssertionError(f"{arch}: restored at step {tr.step}, "
                                      f"not onto the mesh at {start}")
             hist = tr.run(steps)
+    if len(tr._step_fn.graphs) != 1:
+        raise AssertionError(f"{arch}: the mesh-resumed run captured "
+                             f"{len(tr._step_fn.graphs)} graphs, expected 1")
     want = handoff["ref_hist"][start:]
     if hist != want:
         raise AssertionError(f"{arch}: mesh-resumed metrics {hist}, "
@@ -3766,7 +3996,8 @@ def mesh_restart(torch, mesh, handoff: dict) -> dict:
     del tr, final
     log(f"[mesh] {arch} (published config, accum {accum}, int8 "
         f"compression): phase 10's step-{start} checkpoint (no mesh) "
-        f"restored onto the mesh as DTensors and resumed to step {steps}: "
+        f"restored onto the mesh as DTensors and resumed, graphed (a capture "
+        f"over the restored shards), to step {steps}: "
         f"losses {[m['loss'] for m in hist]} equal the uninterrupted run's "
         f"bit for bit, every metric too, and the final state phase 10's "
         f"step-{steps} checkpoint; ops without a deterministic kernel "
@@ -3919,6 +4150,8 @@ def mesh_phase(torch, card: str, phase10_ms: float, handoff: dict) -> dict:
         mesh = init_device_mesh("cuda", (1, 1),
                                 mesh_dim_names=("data", "model"))
         mesh_train(torch, card, mesh, phase10_ms)
+        mesh_nccl_capture(torch, mesh)
+        mesh_by_hand(torch, mesh)
         launches = mesh_restart(torch, mesh, handoff)
         mesh_decode(torch, mesh)
     finally:

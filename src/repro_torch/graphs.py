@@ -21,10 +21,12 @@ and replayed.
   graph serves every position.
 * ``GraphedTrainStep(fn)``: ``train_step(state, batch) -> (state,
   metrics)`` (``training.build_train_step``), one graph per calling stream,
-  batch keys with their shapes and dtypes, and the ``data_ptr``s of every
-  state leaf (params, m, v, step, err): the step updates them in place, so a
-  restored or reallocated state captures again. Its warm-up calls are the
-  run's own steps (below).
+  batch keys with their shapes, dtypes and placements, the mesh, and the
+  ``data_ptr``s of every state leaf (params, m, v, step, err; of a DTensor
+  its local shard): the step updates them in place, so a restored or
+  reallocated state captures again. On a mesh the step's collectives are
+  captured with it, and its metrics leave the graph replicated, so reading
+  them issues none. Its warm-up calls are the run's own steps (below).
 
 Common to all three:
 
@@ -69,6 +71,7 @@ from torch.distributed.tensor import DTensor
 from .configs import ArchConfig
 from .kernels import build
 from .models import model as M
+from .placement import replicated
 
 Tensor = torch.Tensor
 
@@ -78,8 +81,33 @@ WARMUP_CALLS = 2
 _capture_lock = threading.Lock()
 
 
+def _local(t: Tensor) -> Tensor:
+    """A DTensor's local shard (a wrapper has no storage of its own); a
+    plain tensor itself. The attribute, not ``to_local()``: a key is built
+    at every call, and ``to_local`` is an autograd function."""
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
 def _ptrs(tree) -> tuple[int, ...]:
-    return tuple(t.data_ptr() for t in M.tree_leaves(tree))
+    return tuple(_local(t).data_ptr() for t in M.tree_leaves(tree))
+
+
+def _layout(t: Tensor) -> tuple:
+    """What a graph bakes in of a batch tensor besides its address: shape,
+    dtype, and on a mesh its mesh and placements."""
+    if isinstance(t, DTensor):
+        return (tuple(t.shape), t.dtype, t.device_mesh, tuple(t.placements))
+    return (tuple(t.shape), t.dtype)
+
+
+def _like(local: Tensor, t: Tensor) -> Tensor:
+    """``local`` as the shard of a DTensor placed like ``t`` (no
+    communication); ``local`` itself beside a plain ``t``."""
+    if not isinstance(t, DTensor):
+        return local
+    return DTensor.from_local(local, t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
 
 
 @dataclass
@@ -235,7 +263,15 @@ class GraphedTrainStep:
     and ``"thread_local"`` would forbid unsafe CUDA calls (a host sync) only
     on the capturing thread, leaving that one unchecked.
 
-    Plain tensors only: a state of DTensors (``Trainer`` on a mesh) raises.
+    On a mesh (a state of DTensors) the graph is the same step: its static
+    batch is the local shards of the batch DTensors, rebuilt inside the
+    capture with ``DTensor.from_local`` at their placements; the state's
+    local shards are updated in place as without a mesh; the collectives the
+    step issues (NCCL's, on a card) are captured in the graph, the process
+    group's communicator having been made by a warm-up step; and each
+    metric is redistributed to ``Replicate()`` inside the capture, so that
+    reading it after a replay is a local read. A DTensor state on the CPU
+    runs eagerly, as a plain one does.
     """
 
     def __init__(self, fn: Callable[[dict, dict], tuple[dict, dict]]):
@@ -246,18 +282,16 @@ class GraphedTrainStep:
 
     def __call__(self, state: dict, batch: dict) -> tuple[dict, dict]:
         leaves = M.tree_leaves(state)
-        device = leaves[0].device
+        device = _local(leaves[0]).device
         if device.type != "cuda":
             return self.eager(state, batch)
-        if any(isinstance(t, DTensor) for t in leaves):
-            raise TypeError("GraphedTrainStep takes plain tensors; a mesh "
-                            "step (DTensors) runs eagerly")
         names = sorted(batch)
-        inputs = tuple(batch[k] for k in names)
+        given = [batch[k] for k in names]
+        inputs = tuple(_local(t) for t in given)
         stream = torch.cuda.current_stream(device)
-        key = (device.index, stream.cuda_stream,
-               tuple((k, tuple(t.shape), t.dtype) for k, t in zip(names,
-                                                                  inputs)),
+        mesh = getattr(leaves[0], "device_mesh", None)
+        key = (device.index, stream.cuda_stream, mesh,
+               tuple((k, _layout(t)) for k, t in zip(names, given)),
                _ptrs(state))
         g = self.graphs.get(key)
         if g is None:
@@ -272,7 +306,10 @@ class GraphedTrainStep:
                         return state, self._eager_on(side, state, batch)
 
                     def run(*static):
-                        return self.eager(state, dict(zip(names, static)))[1]
+                        b = {k: _like(x, t)
+                             for k, x, t in zip(names, static, given)}
+                        metrics = self.eager(state, b)[1]
+                        return {k: replicated(v) for k, v in metrics.items()}
                     g = capture(run, inputs, warmup=0, side=side,
                                 mode="global")
                     del self._warm[key]
@@ -289,5 +326,5 @@ class GraphedTrainStep:
             _, metrics = self.eager(state, batch)
         caller.wait_stream(side)
         for t in metrics.values():
-            t.record_stream(caller)     # read on the caller's stream
+            _local(t).record_stream(caller)     # read on the caller's stream
         return metrics

@@ -22,12 +22,14 @@ The two compute different functions wherever the capacity drops a pair.
 On a mesh the router's ``topk`` runs on each rank's token shard
 (``placement.per_shard``): its backward in torch 2.11 scatters the
 gradient into a plain zero tensor, which DTensor refuses. So do the einsum
-dispatch's per-group slot fill and combine gather (each rank its own
-groups: a zero buffer the model makes itself would be replicated, and every
-token gathered to fill it), the expert counts (a partial sum over the
-token shards) and the expert matmuls (``_experts``: DTensor's einsum kept a
-shard of the contracted, FSDP-sharded dimension on a dimension of size 1,
-which its view then refused to drop).
+dispatch's per-group slot fill (each rank its own groups: a zero buffer the
+model makes itself would be replicated, and every token gathered to fill
+it), its combine (each rank its own groups' pairs whose expert lies in its
+expert shard, from its local slots: a partial sum over the expert shards,
+as GSPMD sums the reference's combine einsum), the expert counts (a
+partial sum over the token shards) and the expert matmuls (``_experts``:
+DTensor's einsum kept a shard of the contracted, FSDP-sharded dimension on
+a dimension of size 1, which its view then refused to drop).
 
 Router: softmax over the expert logits in fp32, top-k, renormalised weights,
 and the Switch-style load-balance loss ``E * sum_e mean_prob_e *
@@ -187,19 +189,32 @@ def moe_einsum(params: dict, cfg: MoEConfig, x: Tensor,
     ye = _experts(h, params["wo"].to(dtype))
     ye = constrain(ye, ("batch", "act_experts", None, None))
     # combine: each pair's slot back (the extra slot is zero), weighted and
-    # summed over the k choices in fp32, as the combine einsum sums
+    # summed over the k choices in fp32, as the combine einsum sums, then
+    # cast to x's dtype, the einsum's output dtype
 
-    def combine(ye, slot):
-        ye = torch.cat([ye.reshape(ye.shape[0], e * cap, d),
+    def combine(ye, slot, w, ids):
+        el = ye.shape[1]
+        if el < e:
+            # this rank's expert shard: a pair of another shard's expert
+            # (or a dropped one) reads the zero slot
+            local = slot - ids[:1] * cap
+            slot = torch.where((local >= 0) & (local < el * cap), local,
+                               el * cap)
+        ye = torch.cat([ye.reshape(ye.shape[0], el * cap, d),
                         ye.new_zeros((ye.shape[0], 1, d))], dim=1)
-        return ye.gather(1, slot[..., None].expand(-1, -1, d))
-    # on a mesh each rank gathers its own groups' pairs from every expert's
-    # slots (the experts made whole)
-    yk = per_shard(combine, (ye, {"group": 0}), (slot, {"group": 0}),
-                   out={"group": 0})
-    yk = yk.reshape(n_groups, g, k, d).float()
-    w = weights.reshape(n_groups, g, k, 1).float()
-    y = (yk * w).sum(dim=2).to(dtype)
+        yk = ye.gather(1, slot[..., None].expand(-1, -1, d))
+        yk = yk.reshape(-1, g, k, d).float()
+        return (yk * w.reshape(-1, g, k, 1).float()).sum(dim=2).to(dtype)
+    # on a mesh each rank sums its own groups' pairs over its own experts'
+    # slots, handed its expert ids: a partial sum over the expert shards,
+    # which the next constraint reduces (GSPMD's partial sums of the
+    # combine einsum)
+    ids = on_mesh_of(ye, torch.arange(e, device=slot.device))
+    y = per_shard(combine, (ye, {"group": 0, "expert": 1}),
+                  (slot, {"group": 0}),
+                  (weights.reshape(n_groups, g * k), {"group": 0}),
+                  (ids, {"expert": 0}),
+                  out={"group": 0, "expert": Partial()})
     return y.reshape(b, s, d), aux
 
 

@@ -16,22 +16,23 @@ einsum dispatch), since none of its Pallas kernels has a backward pass, and
 neither has any CUDA kernel of the port (their bindings raise on an input
 that requires grad).
 
-On the card without a mesh, ``Trainer`` runs its step as the JAX
+On the card, with a mesh or without, ``Trainer`` runs its step as the JAX
 ``Trainer`` runs ``jax.jit(train_step)``: as one program,
 ``graphs.GraphedTrainStep``, a CUDA graph captured after two eager warm-up
 steps and replayed for each later step, bit-equal to the eager step. The
 state is updated in place, the error state of the gradient compression
-included, so every leaf keeps its address from step to step; a restored
-state captures again. On the CPU, and on a mesh, the step runs eagerly (a
-graphed DTensor step is still to be ported).
+included (on a mesh: each DTensor's local shard), so every leaf keeps its
+address from step to step; a restored state captures again. On a mesh the
+graph holds the step's collectives too. On the CPU the step runs eagerly.
 
 Sharding: ``build_train_step(cfg, tcfg, rules)`` binds
 ``distributed.sharding.constrain`` to the rule table and passes it into
 ``forward``, as the reference does. ``Trainer(mesh=..., rules=...)`` puts
 the state on a ``DeviceMesh`` as DTensors placed by ``train_state_axes``
 (``distribute_tensor``), each batch by ("batch", "act_seq"), and reads the
-metrics with ``full_tensor()``; the step's arithmetic is the mesh-less
-step's, run by DTensor on each rank's shards. Without a mesh the state is
+metrics with ``full_tensor()`` (a local read of the graphed step's
+replicated metrics); the step's arithmetic is the mesh-less step's, run by
+DTensor on each rank's shards. Without a mesh the state is
 plain tensors and the constraints are the identity.
 """
 from __future__ import annotations
@@ -168,11 +169,11 @@ def _metric(v: torch.Tensor) -> float:
 
 @dataclass
 class Trainer:
-    """The fault-tolerant train loop (see the module docstring). On CUDA
-    with no mesh each step after the first two is a replay of one CUDA graph
-    (``graphs.GraphedTrainStep``); with a ``mesh`` the step runs eagerly on
-    DTensors (its AdamW kernel on each rank's local shards), and on the CPU
-    eagerly."""
+    """The fault-tolerant train loop (see the module docstring). On CUDA,
+    with a ``mesh`` or without, each step after the first two is a replay
+    of one CUDA graph (``graphs.GraphedTrainStep``; on a mesh a step on
+    DTensors, its AdamW kernel on each rank's local shards and its
+    collectives in the graph); on the CPU the step runs eagerly."""
 
     cfg: ArchConfig
     tcfg: TrainConfig
@@ -194,10 +195,9 @@ class Trainer:
         self.device = resolve_device(self.device)
         step = build_train_step(self.cfg, self.tcfg, self.rules)
         # jax.jit's counterpart: a CUDA graph of the step, replayed after its
-        # warm-up steps (graphs.GraphedTrainStep); a mesh step stays eager
+        # warm-up steps (graphs.GraphedTrainStep)
         self._step_fn = (GraphedTrainStep(step)
-                         if self.device.type == "cuda" and self.mesh is None
-                         else step)
+                         if self.device.type == "cuda" else step)
         self._placements = (
             shd.tree_placements(self.mesh, train_state_axes(self.cfg,
                                                             self.tcfg),

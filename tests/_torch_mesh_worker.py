@@ -26,7 +26,7 @@ import sys
 import numpy as np
 import torch
 
-ARCHS = ("gemma2-2b", "mamba2-130m")
+ARCHS = ("gemma2-2b", "mamba2-130m", "qwen3-moe-235b-a22b")
 MESHES = ((1, 2), (2, 1))
 SEQ, BATCH, VOCAB = 32, 4, 512
 BLOCKS = (8, 256)

@@ -1593,9 +1593,9 @@ def test_train_step_makes_no_host_sync(cuda, arch):
 def test_mesh_trainer_with_the_kernel_on_shards_equals_the_graphed_one(cuda):
     """Five float32 steps (accum 2, int8 compression) through ``Trainer`` on
     a one-device CUDA mesh, whose AdamW kernel runs on each rank's local
-    shards, equal the mesh-less ``Trainer``'s, whose steps after the second
-    replay a CUDA graph, bit for bit under deterministic algorithms; both
-    launch the kernel once a leaf a step."""
+    shards, equal the mesh-less ``Trainer``'s bit for bit under
+    deterministic algorithms; both graph their step (the steps after the
+    second replay a CUDA graph) and launch the kernel once a leaf a step."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch import graphs
@@ -1616,8 +1616,7 @@ def test_mesh_trainer_with_the_kernel_on_shards_equals_the_graphed_one(cuda):
             t = Trainer(cfg=cfg, tcfg=tcfg, data=iter(batches), mesh=m,
                         rules=rules_for(cfg, mesh) if m is not None else None,
                         log_every=1000, device="cuda")
-            assert isinstance(t._step_fn, graphs.GraphedTrainStep) == (
-                m is None)
+            assert isinstance(t._step_fn, graphs.GraphedTrainStep)
             t.init_or_resume(resume="never")
             before = adamw_mod.launches
             hist = t.run(5)

@@ -14,6 +14,9 @@ cell's DTensor step run as rank 0 of a fake process group, at smoke width.
 * Two full-width decode cells through the CLI, with the reference's keys.
 * The AdamW update priced as the card runs it: one op a leaf, 28 bytes a
   float32 parameter.
+* The MoE einsum dispatch's combine, a partial sum over the expert shards:
+  no all-gather of the expert slots, one reduction of the [G, g, D]
+  partial sums.
 """
 import dataclasses
 import json
@@ -21,6 +24,8 @@ import math
 import os
 import subprocess
 import sys
+
+import functools
 
 import pytest
 import torch
@@ -164,3 +169,56 @@ def test_adamw_is_one_op_a_leaf():
     assert local.by_op["adamw"] == sum(28 * p.numel() + 4 * 4
                                        for p in shards)
     assert sum(p.numel() for p in shards) < sum(p.numel() for p in leaves)
+
+
+class _Collectives(D.LocalTally):
+    """``LocalTally`` that also lists each collective as (op, output
+    shape)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def _collective(self, func, args, kwargs):
+        out = super()._collective(func, args, kwargs)
+        name = func.overloadpacket.__name__
+        if name not in D._NOT_COLLECTIVES:
+            self.ops.append((name, tuple(out.shape)))
+        return out
+
+
+def test_moe_combine_is_a_partial_sum_over_the_expert_shards():
+    """``moe_einsum``'s forward on the fake (2, 8) mesh, its experts split
+    over ``model`` (one a rank) and its 8 groups over ``data``: each rank
+    sums its own groups' pairs over its own expert's slots, so no expert
+    slot is gathered (the all-gathers are the three weights' FSDP shards),
+    and the next constraint reduces the partial sums, [4 groups, 16, 64]
+    as [2, 32, 64], once."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import moe
+    mcfg = moe.MoEConfig(d_model=64, d_ff=32, num_experts=8, top_k=2,
+                         capacity_factor=2.0, group_size=16)
+    cfg = dataclasses.replace(_smoke("qwen3-moe-235b-a22b"), num_experts=8)
+    spec = M.tree_map(lambda t: torch.empty(t.shape, device="meta"),
+                      moe.moe_init(torch.Generator().manual_seed(0), mcfg))
+    with D.fake_mesh(FAKE) as mesh:
+        rules = rules_for(cfg, mesh)
+        assert rules["experts"] == rules["act_experts"] == "model"
+        params = D._on_mesh(spec, moe.moe_axes(), rules, mesh)
+        x = D._on_mesh(torch.empty(4, 32, 64, dtype=torch.bfloat16,
+                                   device="meta"),
+                       ("batch", "act_seq", "embed"), rules, mesh)
+        constrain = functools.partial(shd.constrain, rules=rules)
+        with _Collectives() as tally:
+            y, _ = moe.moe_einsum(params, mcfg, x, constrain)
+            y = constrain(y, ("batch", "act_seq", "embed"))
+    cap = moe._capacity(mcfg, 16)
+    gathers = [o for n, o in tally.ops if n.startswith("all_gather")]
+    assert gathers == [(2, 32, 32)] * 3
+    assert not any(o[-2:] == (cap, 64) for _, o in tally.ops)
+    reductions = [(n, o) for n, o in tally.ops
+                  if n.startswith(("all_reduce", "reduce_scatter"))
+                  and math.prod(o) > mcfg.num_experts]
+    assert reductions == [("all_reduce", (2, 32, 64))]
+    assert y.shape == (4, 32, 64) and y.dtype == torch.bfloat16
