@@ -1,0 +1,113 @@
+"""What the benchmark loads and reads: no JAX and no JAX package by whole
+top-level module name, nothing of ``benchmarks/``; its command without a
+card; and a configuration, a traffic mix and a per-layer metric added to a
+copy of it as files alone, found by name."""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+from rtmmbench import ROOT, SRC
+from rtmmbench.harness import FORBIDDEN, PKG
+
+REHEARSE = textwrap.dedent("""
+    import json, sys, time, torch
+    torch.set_num_threads(1)
+    import rtmmbench.run, rtmmbench.sweep, rtmmbench.limits
+    from rtmmbench import harness
+    from rtmmbench.tests import tiny
+    wl, name, trace = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
+    out = harness.run_cell(wl, 2**31 + 5, 0.6, trace, torch.device("cpu"),
+                           time.perf_counter(), config=tiny.config(name),
+                           mix=tiny.mix(name, fps=20.0))
+    for m in json.loads(open("BENCHMARK.json").read())["per_layer"]:
+        harness.reader(m["name"])
+    top = sorted({m.split(".")[0] for m in sys.modules})
+    print(json.dumps({"line": out.line, "modules": top}))
+""")
+
+
+def _python(args: list[str], cwd: Path, timeout: float = 240):
+    env = dict(os.environ, PYTHONPATH=f"{cwd}{os.pathsep}{SRC}")
+    env.pop("JAX_PLATFORMS", None)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_a_run_loads_no_jax_and_no_jax_package():
+    res = _python(["-c", REHEARSE, "audio.steady", "rtmm_audio", "1"], ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["line"]["correct"]
+    assert "repro_torch" in out["modules"]
+    assert not set(out["modules"]) & set(FORBIDDEN), out["modules"]
+
+
+def test_nothing_reads_the_jax_packages_benchmarks():
+    for path in PKG.rglob("*.py"):
+        if "tests" in path.parts:
+            continue
+        text = path.read_text()
+        assert "benchmarks" not in text, path
+        assert "import jax" not in text and "from jax" not in text, path
+
+
+def test_command_without_a_card_prints_no_result():
+    res = _python(["-m", "rtmmbench.run", "--workload", "vision.steady",
+                   "--seed", str(2**31 + 9), "--seconds", "1", "--trace",
+                   "0"], ROOT, timeout=120)
+    assert res.returncode != 0
+    assert res.stdout.strip() == ""
+    assert "CUDA" in res.stderr
+
+
+def test_added_files_are_found_by_name(tmp_path):
+    """A copy of the benchmark gains a configuration (a tiny audio
+    deployment), its traffic and a per-layer metric as new files and new
+    entries in BENCHMARK.json; a traced run of the new cell finds all three
+    with no edit to any file the copy had."""
+    shutil.copytree(PKG, tmp_path / "rtmmbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    before = {p: p.read_bytes() for p in (tmp_path / "rtmmbench").rglob("*")
+              if p.is_file()}
+    from rtmmbench.tests import tiny
+    cfg = tiny.config("rtmm_audio")
+    cfg["name"] = "tiny_audio"
+    (tmp_path / "rtmmbench/configs/tiny_audio.json").write_text(
+        json.dumps(cfg))
+    (tmp_path / "rtmmbench/traffic/steady/tiny_audio.json").write_text(
+        json.dumps(tiny.mix("rtmm_audio", fps=20.0)))
+    (tmp_path / "rtmmbench/metrics/frames_read.py").write_text(
+        "def read(run):\n    return float(run.frames)\n")
+    bench["configs"].append({"name": "tiny_audio", "source": "test",
+                             "file": "rtmmbench/configs/tiny_audio.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": "tiny.steady", "config": "tiny_audio",
+                               "traffic": "steady", "chips": 1,
+                               "why": "test"})
+    bench["per_layer"].append({"name": "frames_read", "unit": "frames",
+                               "better": "higher", "source": "host_clock",
+                               "layer": "engine", "moves": "frame_p95_ms",
+                               "workloads": ["tiny.steady"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    script = textwrap.dedent("""
+        import json, time, torch
+        torch.set_num_threads(1)
+        from rtmmbench import harness
+        out = harness.run_cell("tiny.steady", 2**31 + 3, 0.6, True,
+                               torch.device("cpu"), time.perf_counter())
+        print(json.dumps(out.line))
+    """)
+    res = _python(["-c", script], tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["metrics"]["frames_read"]["value"] > 0
+    assert "logit_err.kws" in line["checks"]
+    for p, data in before.items():
+        assert p.read_bytes() == data, p
