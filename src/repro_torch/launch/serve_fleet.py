@@ -135,12 +135,14 @@ class EngineStream:
                           urgency=iso * self.fps)
 
 
-def make_nodes(device: torch.device) -> list[EngineNode]:
+def make_nodes(device: torch.device,
+               obs: Optional[Obs] = None) -> list[EngineNode]:
     """The two nodes of ``NODE_SLICES``, each with a CUDA stream of its own
-    when ``device`` is CUDA."""
+    when ``device`` is CUDA; their engines record into ``obs``, tagged with
+    the node's name."""
     return [EngineNode(i, name, ServingEngine([
         VirtualAccelerator(acc, speed=speed, power=power)
-        for acc, speed, power in slices]),
+        for acc, speed, power in slices], obs=obs, obs_node=name),
         torch.cuda.Stream(device) if device.type == "cuda" else None)
         for i, (name, slices) in enumerate(NODE_SLICES)]
 
@@ -396,8 +398,9 @@ def main(argv: Optional[list[str]] = None) -> FleetRun:
         "serving epochs (re-place + serve + feed telemetry); defaults to "
         "3 for tuned_score, 1 otherwise"))
     ap.add_argument("--obs", default=None, metavar="DIR", help=(
-        "export observability artifacts (placement/epoch spans + a "
-        "Prometheus/JSON metrics snapshot) to this directory"))
+        "export observability artifacts (placement/epoch spans, each "
+        "engine's job and loop spans, and a Prometheus/JSON metrics "
+        "snapshot) to this directory"))
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -405,7 +408,12 @@ def main(argv: Optional[list[str]] = None) -> FleetRun:
     if args.epochs <= 0:
         args.epochs = 3 if args.policy == "tuned_score" else 1
 
-    nodes = make_nodes(dev)
+    # observability: spans for placements and epochs, each engine's own
+    # (its frames' jobs and its loop's phases, on that run's clock; the
+    # fleet's spans carry epoch indices as their time axis), and a metrics
+    # registry the serving loop publishes into
+    obs = Obs.make({"profile": False} if args.obs else None)
+    nodes = make_nodes(dev, obs)
     handles = [
         build_handle("gemma-2b", "detector", layers=2, device=dev),
         build_handle("qwen1.5-4b", "verifier", layers=2, device=dev),
@@ -414,11 +422,6 @@ def main(argv: Optional[list[str]] = None) -> FleetRun:
     ]
     calib = np.zeros((1, 32), np.int32)
     register_all(nodes, handles, lambda h: calib)
-
-    # observability: spans for placements and epochs, and a metrics
-    # registry the serving loop publishes into (real engines are timed on
-    # the wall clock, so spans carry epoch indices as their time axis)
-    obs = Obs.make({"profile": False} if args.obs else None)
     run = serve_epochs(nodes, make_streams(), make_policy(args.policy),
                        args.epochs, args.duration / args.epochs, obs=obs)
     if obs is not None:

@@ -21,6 +21,39 @@ prompt goes host -> device inside the timed window. Waiting for the stream
 and not the device is what lets engines serve concurrently, one thread and
 one stream each (``launch.serve_fleet``): each times its own work, not the
 other engines'. Energy is modeled as latency x slice power weight.
+
+With ``obs`` (a ``repro_torch.obs.Obs`` whose ``tracer`` is set) a run
+records into the tracer, on the engine's clock (seconds since the run's
+start), every span tagged with ``run`` (the ``engine.run`` span's id) and
+``node`` (``obs_node``), so that one tracer may serve several engines:
+
+  ==================  =====================================================
+  kind                recorded
+  ==================  =====================================================
+  ``engine.run``      the run; ``clock``: two (engine seconds, Unix ns)
+                      pairs read back to back at its start and end, which
+                      map the run's spans onto the Unix clock
+  ``job``             one per frame, from its arrival (``origin``) to its
+                      hand-over, drop, abandonment or the run's end
+                      (``outcome`` done / dropped / aborted / unfinished);
+                      ``segs`` ``[[dispatch, hand-over]]``, so that its
+                      queue segment is the frame's wait
+  ``engine.wait``     consecutive passes of the loop that dispatch nothing
+                      (poll, hygiene, drop, adaptivity, sleep)
+  ``engine.decide``   a dispatching pass up to the call: poll, hygiene,
+                      drop, MapScore over every (ready, idle) pair
+                      (``evals``), the variant
+  ``engine.enqueue``  the model call up to its return
+  ``engine.sync``     the wait on the stream, up to the hand-over
+  ``engine.after``    re-dispatch check, accounting, cascade triggers, up
+                      to the next pass
+  ``engine.window``   (event) an adaptivity window's UXCost and frames
+                      under the (alpha, beta) it ran with
+  ==================  =====================================================
+
+The loop's spans follow one another without overlap. Tracing draws no
+random number and no value it reads flows back into a decision; with
+``obs`` off each site costs one ``is not None`` test.
 """
 from __future__ import annotations
 
@@ -182,7 +215,6 @@ class VirtualAccelerator:
     power: float = 1.0          # relative energy per unit work
     busy_until: float = 0.0
     last_model: Optional[str] = None
-    total_busy: float = 0.0
 
 
 @dataclass
@@ -199,6 +231,19 @@ def _params_device(params: Any) -> torch.device:
     while isinstance(params, dict):
         params = next(iter(params.values()))
     return params.device
+
+
+def _clock_anchor(now: Callable[[], float]) -> list:
+    """[engine seconds, Unix ns] read back to back: of three tries the pair
+    whose two reads of ``now`` lie closest, at their midpoint."""
+    best = None
+    for _ in range(3):
+        a = now()
+        unix = time.time_ns()
+        b = now()
+        if best is None or b - a < best[0]:
+            best = (b - a, [(a + b) / 2, unix])
+    return best[1]
 
 
 def _sync(device: torch.device) -> None:
@@ -241,7 +286,7 @@ class ServingEngine:
                  max_drop_per_window: int = 2, drop_window: int = 10,
                  straggler_factor: float = 3.0,
                  stale_periods: float = 2.0,
-                 seed: int = 0):
+                 seed: int = 0, obs=None, obs_node=None):
         self.accs = accelerators
         self.models: dict[str, ModelHandle] = {}
         self.devices: dict[str, torch.device] = {}
@@ -264,6 +309,11 @@ class ServingEngine:
         self._probe: list[tuple[float, np.ndarray]] = []
         self._probe_radius = 0.4
         self._lat_samples: dict[str, list[float]] = {}
+        self._tracer = getattr(obs, "tracer", None)
+        self._obs_node = obs_node
+        #: this run's open job spans by request id, and its spans' tags
+        self._job_span: dict[int, int] = {}
+        self._tags: dict[str, Any] = {}
 
     @property
     def lat_samples(self) -> dict[str, list[float]]:
@@ -334,6 +384,8 @@ class ServingEngine:
             best.done, best.dropped = True, True
             self.dropped += 1
             self._finish_stats(best)
+            if self._tracer is not None:
+                self._close_job(best, now, "dropped")
 
     # ------------------------------------------------------------ adaptivity
     def _adapt(self, window_ux: float) -> None:
@@ -353,6 +405,29 @@ class ServingEngine:
                 -self._probe_radius, self._probe_radius, 2), 0.0, 2.0)
             self.params = MapScoreParams(alpha=float(cand[0]),
                                          beta=float(cand[1]))
+
+    # ------------------------------------------------------------- tracing
+    def _open_jobs(self, reqs: list[ServeRequest], seen: float,
+                   parent: Optional[ServeRequest] = None) -> None:
+        """A job span for each request the engine sees first at ``seen``.
+        It opens at the arrival, or at ``seen`` where the queue hands a
+        cascade frame over before its arrival (the port's queue stamps it
+        with its parent's modelled completion)."""
+        extra = {} if parent is None else {"parent": self._uid(parent)}
+        for r in reqs:
+            self._job_span[r.rid] = self._tracer.open(
+                "job", min(r.arrival, seen), uid=self._uid(r),
+                model=r.model, origin=r.arrival, deadline=r.deadline,
+                **extra, **self._tags)
+
+    def _uid(self, req: ServeRequest) -> str:
+        return (f"r{req.rid}" if self._obs_node is None
+                else f"n{self._obs_node}:r{req.rid}")
+
+    def _close_job(self, req: ServeRequest, t: float, outcome: str,
+                   **attrs) -> None:
+        self._tracer.close(self._job_span.pop(req.rid), t, outcome=outcome,
+                           **attrs)
 
     # -------------------------------------------------------------- running
     def _finish_stats(self, req: ServeRequest) -> None:
@@ -391,13 +466,26 @@ class ServingEngine:
         now_fn = lambda: time.perf_counter() - t_start
         self._waiting: list[ServeRequest] = []
         next_window = window_s
-        variant_counts: dict[str, int] = {}
+        tr = self._tracer
+        if tr is not None:
+            anchor = _clock_anchor(now_fn)
+            run_sid = tr.open("engine.run", 0.0, node=self._obs_node)
+            self._tags = {"run": run_sid, "node": self._obs_node}
+            self._job_span = {}
+            # the open engine.wait and engine.after spans' starts
+            wait_t0 = after_t0 = None
 
         while True:
             now = now_fn()
+            if tr is not None and after_t0 is not None:
+                tr.span("engine.after", after_t0, now, **self._tags)
+                after_t0 = None
             if now >= duration_s:
                 break
-            self._waiting.extend(queue.poll(now))
+            polled = queue.poll(now)
+            if tr is not None:
+                self._open_jobs(polled, now)
+            self._waiting.extend(polled)
             self._waiting = [r for r in self._waiting if not r.done]
             # hygiene: a frame still waiting `stale_periods` past its
             # deadline-equivalent period is abandoned (counts violated)
@@ -407,20 +495,30 @@ class ServingEngine:
                     r.done, r.dropped = True, True
                     self.aborted += 1
                     self._finish_stats(r)
+                    if tr is not None:
+                        self._close_job(r, now, "aborted")
             self._waiting = [r for r in self._waiting if not r.done]
             if self.frame_drop:
                 self._try_drop(now)
             ready = [r for r in self._waiting if not r.done]
             idle = [a for a in self.accs if a.busy_until <= now]
             if not ready or not idle:
+                if tr is not None and wait_t0 is None:
+                    wait_t0 = now
                 nxt = min([a.busy_until for a in self.accs
                            if a.busy_until > now] + [now + 1e-3])
                 time.sleep(max(min(nxt - now, 1e-3), 1e-5))
                 if now >= next_window:
                     wux = uxcost(self.window_stats)
-                    if self.adaptivity and sum(
-                            st.frames for st in
-                            self.window_stats.per_model.values()):
+                    window = self.window_stats.per_model.values()
+                    frames = sum(st.frames for st in window)
+                    if tr is not None:
+                        tr.event("engine.window", now, uxcost=float(wux),
+                                 alpha=self.params.alpha,
+                                 beta=self.params.beta, frames=frames,
+                                 violated=sum(st.violated for st in window),
+                                 **self._tags)
+                    if self.adaptivity and frames:
                         self._adapt(wux)
                     self.stats.merge(self.window_stats)
                     self.window_stats = WindowStats()
@@ -436,22 +534,36 @@ class ServingEngine:
                         best, best_score = (r, a), s
             req, acc = best
             run_as = self._pick_variant(req, now)
-            variant_counts[run_as] = variant_counts.get(run_as, 0) + 1
             handle = self.models[run_as]
             tok = req.tokens
+            if tr is not None:
+                if wait_t0 is not None:
+                    tr.span("engine.wait", wait_t0, now, **self._tags)
+                    wait_t0 = None
+                t_disp = t_ret = now_fn()
+                tr.span("engine.decide", now, t_disp,
+                        evals=len(ready) * len(idle), ready=len(ready),
+                        idle=len(idle), **self._tags)
             if tok.shape[1] > 0:
                 dev = self.devices[run_as]
                 t0 = time.perf_counter()
                 out = handle.fn(handle.params, torch.from_numpy(tok).to(dev))
+                if tr is not None:
+                    t_ret = now_fn()
                 _sync(dev)
                 wall = time.perf_counter() - t0
                 req.result = out
             else:
                 wall = 0.0
+            if tr is not None:
+                t_handed = now_fn()
+                tr.span("engine.enqueue", t_disp, t_ret, **self._tags)
+                tr.span("engine.sync", t_ret, t_handed, **self._tags)
             # straggler mitigation: re-dispatch if way past expectation
             expect = self.lat_table[(run_as, acc.name)]
             samples = self._lat_samples.setdefault(run_as, [])
             samples.append(wall)
+            redispatched = False
             if wall > self.straggler_factor * expect and len(samples) > 4:
                 alt = min((a for a in self.accs if a is not acc),
                           key=lambda a: self.lat_table[(run_as, a.name)],
@@ -459,18 +571,33 @@ class ServingEngine:
                 if alt is not None:
                     self.redispatched += 1
                     acc = alt
+                    redispatched = True
             # virtual time accounting (speed factor models slice size)
             vlat = max(wall, self.lat_table[(run_as, acc.name)])
             done_at = now + vlat
             acc.busy_until = done_at
-            acc.total_busy += vlat
             acc.last_model = run_as
             req.energy = vlat * acc.power
             req.done = True
             req.completion = done_at
             self._finish_stats(req)
-            self._waiting.extend(queue.trigger_dependents(req.model, done_at))
+            children = queue.trigger_dependents(req.model, done_at)
+            if tr is not None:
+                self._close_job(req, t_handed, "done", variant=run_as,
+                                slice=acc.name, completion=done_at,
+                                redispatched=redispatched,
+                                segs=[[t_disp, t_handed]])
+                self._open_jobs(children, t_handed, parent=req)
+                after_t0 = t_handed
+            self._waiting.extend(children)
 
+        if tr is not None:
+            if wait_t0 is not None:
+                tr.span("engine.wait", wait_t0, now, **self._tags)
+            for sid in self._job_span.values():
+                tr.close(sid, now, outcome="unfinished")
+            self._job_span = {}
+            tr.close(run_sid, now, clock=[anchor, _clock_anchor(now_fn)])
         self.stats.merge(self.window_stats)
         self.window_stats = WindowStats()
         frames = sum(st.frames for st in self.stats.per_model.values())

@@ -26,6 +26,7 @@ import json
 import subprocess
 import sys
 import types
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -709,9 +710,9 @@ def test_example_adapter_without_system_breaks_the_reference_router(example):
 
 def test_serve_fleet_cli_runs_on_the_cpu(tmp_path):
     """``python -m repro_torch.launch.serve_fleet`` at smoke width on the
-    CPU: both nodes serve frames, and the obs export holds valid spans and
-    Prometheus text whose ``serve_frames_total`` sums to the fleet's
-    frames."""
+    CPU: both nodes serve frames, and the obs export holds valid spans, the
+    engines' job spans of each frame among them, and Prometheus text whose
+    ``serve_frames_total`` sums to the fleet's frames."""
     from repro.obs import validate_span as ref_validate_span
     from repro_torch.obs import load_jsonl, parse_prometheus, validate_span
     out = subprocess.run(
@@ -737,6 +738,17 @@ def test_serve_fleet_cli_runs_on_the_cpu(tmp_path):
         ref_validate_span(rec)
     assert [r["kind"] for r in spans].count("place") == 12
     assert [r["kind"] for r in spans].count("epoch") == 2
+    # each node's engine records its frames' jobs, tagged with the node; a
+    # dropped or abandoned frame counts among the fleet's frames too
+    jobs = Counter(r["attrs"]["outcome"] for r in spans if r["kind"] == "job")
+    assert jobs["done"] > 0
+    assert jobs["done"] + jobs["dropped"] + jobs["aborted"] == frames
+    runs = [r for r in spans if r["kind"] == "engine.run"]
+    assert {r["attrs"]["node"] for r in runs} == {"big", "small"}
+    node_of = {r["sid"]: r["attrs"]["node"] for r in runs}
+    assert all(node_of[r["attrs"]["run"]] == r["attrs"]["node"]
+               for r in spans if r["kind"].startswith(("job", "engine."))
+               and r["kind"] != "engine.run")
     samples = parse_prometheus((tmp_path / "metrics.prom").read_text())
     served = sum(s["value"] for s in samples
                  if s["name"] == "serve_frames_total")
