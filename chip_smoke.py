@@ -26,7 +26,7 @@ Phases, each of which raises (exit code != 0) on any failure:
    position (each margin printed); every flash call names the kernel it
    launched (the wgmma kernel for bf16), which the serving, decode and MoE
    phases check on their launch counters, and every SSD call launches each
-   of its four kernels once by the profiler's kernel names (as phase 7's
+   of its three kernels once by the profiler's kernel names (as phase 7's
    profiled prefills do);
 4. model check: the four architectures at smoke width, float32, forward on
    the card (kernels) against forward on the CPU (plain versions);
@@ -216,7 +216,7 @@ Phases, each of which raises (exit code != 0) on any failure:
    CUDA graphs, each node's captured on its own stream at registration:
    one call of each model on each node's stream under ``torch.profiler``
    must replay that graph (no new capture) and run each attention layer's
-   flash instance and each SSM layer's four SSD kernels once, by the
+   flash instance and each SSM layer's three SSD kernels once, by the
    kernel names. It prints each node's lat_table and report, each model's
    median served wall under two threads beside its calibrated time alone
    and beside an epoch of the node's streams served with no other worker
@@ -587,9 +587,8 @@ def ssd_inputs(torch, gen, b, s, h, p, n, dtype):
     return x, dt, A, B, C, D
 
 
-#: the four kernels of csrc/ssd.cu, which every SSD call launches in order
-SSD_KERNELS = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
-               "ssd_out_kernel")
+#: the three kernels of csrc/ssd.cu, which every SSD call launches in order
+SSD_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel")
 
 
 #: seconds the profiled calls wait inside the profiling window before
@@ -642,7 +641,7 @@ def profiled_replay(torch, fn, check, label: str):
 
 def check_ssd_launches(rows, calls: int, label: str) -> None:
     """A profiled run (``rows`` from ``kernel_rows`` or ``profile_fn``)
-    must launch each of the four SSD kernels ``calls`` times, by the
+    must launch each of the three SSD kernels ``calls`` times, by the
     profiler's kernel names."""
     by_name = dict.fromkeys(SSD_KERNELS, 0)
     for _, count, key in rows:
@@ -1421,7 +1420,7 @@ def fleet_phase(torch, handles: dict, card: str) -> dict:
 
     # by the profiler's kernel names: one call of each model on each node's
     # stream replays the graph its registration captured there, which runs
-    # each attention layer's flash instance and each SSM layer's four SSD
+    # each attention layer's flash instance and each SSM layer's three SSD
     # kernels once
     for node in nodes:
         with torch.cuda.stream(node.cuda_stream):

@@ -192,7 +192,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_ssd_fwd.argtypes = [
         p, p, p, p, p, p,           # x, dt, A, B, C, D
         p, p,                       # y, final state
-        p, p, p,                    # scratch: C.B^T transposed, chunk states, decays
+        p, p, p, p,                 # scratch: C.B^T, local and entering states, decays
         i,                          # x/y dtype: 0 float32, 1 bfloat16
         i, i, i, i, i, i,           # Bsz, S, H, P, N, chunk
         p]                          # cudaStream_t

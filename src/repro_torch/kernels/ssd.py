@@ -6,10 +6,11 @@ is ``ref.ssd_chunked`` (``ref.ssd`` is the sequential definition);
 ``ops.ssd`` pads the sequence with dt = 0 and picks between them by the
 device of the tensors.
 
-A call launches the source's four kernels in order (C.B^T per chunk, the
-chunks' local states, the pass over the chunks, the output); ``launches``
-counts calls. That each call runs the four is checked by the profiler's
-kernel names, which a counter raised after one C call cannot show.
+A call launches the source's three kernels in order (the chunks' local
+states, with C.B^T per chunk in its first blocks; the pass over the chunks;
+the output); ``launches`` counts calls. That each call runs the three is
+checked by the profiler's kernel names, which a counter raised after one C
+call cannot show.
 """
 from __future__ import annotations
 
@@ -18,6 +19,12 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the longest chunk the kernels take: the output kernel's two blocks of two
+#: warpgroups, a 64-row tile each, cover a chunk's rows. A longer chunk runs
+#: as equal sub-chunks, which is the same scan (the chunked form is exact for
+#: any partition of the sequence).
+MAX_CHUNK = 256
 
 #: calls that launched the CUDA kernels since the last reset (set to 0 to reset)
 launches = 0
@@ -57,15 +64,21 @@ def ssd(
                              f"expected {shape}")
     if chunk < 1 or s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    if n > 256:
+        raise ValueError(f"ssd kernel takes a state of at most 256, got {n}")
     if not all(t.is_cuda and t.device == x.device for t in tensors.values()):
         raise ValueError("ssd kernel needs all inputs as CUDA tensors on one "
                          "device")
+    parts = -(-chunk // MAX_CHUNK)
+    while chunk % parts:
+        parts += 1
+    chunk //= parts
     nc = s // chunk
-    # the kernels read 16-byte rows: a chunk a multiple of 8 positions, N of
-    # 4 and P of 8. Other shapes are padded exactly: positions appended to
-    # each chunk with dt = 0 change no state and their outputs are dropped,
-    # and zero columns of B, C and x add nothing.
-    lp, np_, pp = -(-chunk // 8) * 8, -(-n // 4) * 4, -(-p // 8) * 8
+    # the kernels take a chunk of a multiple of 64 positions, N a multiple of
+    # 64 (up to 256) and P of 8. Other shapes are padded exactly: positions
+    # appended to each chunk with dt = 0 change no state and their outputs are
+    # dropped, and zero columns of B, C and x add nothing.
+    lp, np_, pp = -(-chunk // 64) * 64, -(-n // 64) * 64, -(-p // 8) * 8
     padded = (lp, np_, pp) != (chunk, n, p)
     if padded:
         x = _pad_chunks(x, nc, chunk, lp, (h, pp))
@@ -75,11 +88,12 @@ def ssd(
     x, dt, A, B, C, D = (_aligned(t) for t in (x, dt, A, B, C, D))
     y = torch.empty_like(x)
     fin = torch.empty((b, h, np_, pp), dtype=torch.float32, device=x.device)
-    # scratch: C.B^T of every chunk, transposed (made once for all heads);
-    # each chunk's local state (then the state entering it) and total decay
+    # scratch: C.B^T of every chunk (made once for all heads); each chunk's
+    # local state and total decay; the state entering each chunk
     f32 = dict(dtype=torch.float32, device=x.device)
-    cbt = torch.empty((b, nc, lp, lp), **f32)
-    states = torch.empty((b, nc, h, np_, pp), **f32)
+    cb = torch.empty((b, nc, lp, lp), **f32)
+    local = torch.empty((b, nc, h, np_, pp), **f32)
+    entering = torch.empty((b, nc, h, np_, pp), **f32)
     decays = torch.empty((b, nc, h), **f32)
     lib = build.load()
     with torch.cuda.device(x.device):
@@ -87,7 +101,7 @@ def ssd(
         err = lib.repro_ssd_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(), y.data_ptr(), fin.data_ptr(),
-            cbt.data_ptr(), states.data_ptr(),
+            cb.data_ptr(), local.data_ptr(), entering.data_ptr(),
             decays.data_ptr(), _DTYPES[x.dtype], b, nc * lp, h, pp, np_, lp,
             stream)
     build.check(lib, err, "ssd launch")

@@ -63,9 +63,8 @@ FLASH_CASES = [
     (1, 1000, 4, 1, 160, 300, 50.0),
 ]
 
-#: the four kernels of csrc/ssd.cu, each launched once by an SSD call
-SSD_KERNELS = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
-               "ssd_out_kernel")
+#: the three kernels of csrc/ssd.cu, each launched once by an SSD call
+SSD_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel")
 
 SSD_CASES = [
     # (b, s, h, p, n, chunk)
@@ -208,7 +207,7 @@ def test_ssd_kernel_at_depth_matches_chunked(cuda, chunk, p, n, dtype):
     y, fin = ssd_mod.ssd(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd_mod.launches == before + 1
-    # by the profiler's kernel names: each of the four kernels once a call
+    # by the profiler's kernel names: each of the three kernels once a call
     kernels = _kernel_names(lambda: ssd_mod.ssd(*args, chunk=chunk))
     assert {name: sum(c for k, c in kernels.items() if name in k)
             for name in SSD_KERNELS} == dict.fromkeys(SSD_KERNELS, 1), kernels
@@ -216,6 +215,59 @@ def test_ssd_kernel_at_depth_matches_chunked(cuda, chunk, p, n, dtype):
     tol = TOL[torch.bfloat16] if dtype == torch.bfloat16 else dict(atol=3e-4,
                                                                    rtol=3e-4)
     np.testing.assert_allclose(_np(y), _np(y_ref), **tol)
+    np.testing.assert_allclose(_np(fin), _np(fin_ref), atol=3e-4, rtol=3e-4)
+
+
+# the served shapes (b, s, h, p, n, chunk): mamba2-130m's and zamba2-2.7b's
+SSD_SERVED = [(1, 1024, 24, 64, 128, 256), (1, 1024, 80, 64, 64, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_SERVED, ids=["mamba2-130m", "zamba2-2.7b"])
+def test_ssd_kernel_bf16_at_served_shapes(cuda, case):
+    """bf16 x at the served shapes (the two-term products with x) against
+    the chunked definition in float32 on the same x."""
+    b, s, h, p, n, ch = case
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal((b, s, h, p), np.float32))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((b, s, h), np.float32)) - 4.0)
+    A = -torch.linspace(1.0, 16.0, h)
+    B, C = (torch.from_numpy(rng.standard_normal((b, s, n), np.float32))
+            for _ in range(2))
+    D = torch.ones((h,))
+    args = [x.to(cuda, torch.bfloat16)] + [t.to(cuda) for t in (dt, A, B, C, D)]
+    y, fin = ops.ssd(*args, chunk=ch)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and fin.dtype == torch.float32
+    y_ref, fin_ref = ref.ssd_chunked(args[0].float(), *args[1:], chunk=ch)
+    np.testing.assert_allclose(_np(y), _np(y_ref), **TOL[torch.bfloat16])
+    np.testing.assert_allclose(_np(fin), _np(fin_ref), atol=3e-4, rtol=3e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_float32_needs_every_split_term(cuda):
+    """float32 x, B and C with full mantissas and outputs in the hundreds,
+    over four chunks that carry the state (slow decay): a product that left
+    out one TF32 piece of an operand (2^-11 of it) misses the 3e-4 bound
+    by tens of times, wherever the output is small beside its terms."""
+    b, s, h, p, n, ch = 1, 1024, 2, 64, 128, 256
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(4 * rng.standard_normal((b, s, h, p), np.float32))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((b, s, h), np.float32)) - 4.0)
+    A = torch.tensor([-0.05, -0.2])
+    B, C = (torch.from_numpy(2 * rng.standard_normal((b, s, n), np.float32))
+            for _ in range(2))
+    D = torch.full((h,), 0.5)
+    args = [t.to(cuda) for t in (x, dt, A, B, C, D)]
+    y, fin = ops.ssd(*args, chunk=ch)
+    torch.cuda.synchronize()
+    y_ref, fin_ref = ref.ssd_chunked(*args, chunk=ch)
+    # the state crosses the chunks and the outputs are large
+    assert float(fin_ref.abs().mean()) > 1.0
+    assert float(y_ref.abs().mean()) > 50.0
+    np.testing.assert_allclose(_np(y), _np(y_ref), atol=3e-4, rtol=3e-4)
     np.testing.assert_allclose(_np(fin), _np(fin_ref), atol=3e-4, rtol=3e-4)
 
 

@@ -7,6 +7,10 @@ in bfloat16 for attention, 3e-4 for the SSD scan against the sequential
 definition (the chunked form sums in another order). The CUDA kernels are
 held to the plain versions on the card in tests/test_torch_cuda.py.
 """
+import importlib.util
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -216,6 +220,21 @@ def test_ssd_dt0_padding_is_a_no_op():
                                rtol=1e-6)
     np.testing.assert_allclose(fin_p.numpy(), fin.numpy(), atol=1e-6,
                                rtol=1e-6)
+
+
+def test_ssd_kernel_names_are_the_roofline_readers():
+    """Every kernel of csrc/ssd.cu has a name that the benchmark's
+    ``ssd_roofline`` reader sums device time by: a kernel under another
+    name would drop out of the share's denominator."""
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "ssd_roofline", root / "rtmmbench" / "metrics" / "ssd_roofline.py")
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    src = (root / "src" / "repro_torch" / "kernels" / "csrc" / "ssd.cu").read_text()
+    names = re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
+    assert names and set(names) <= set(reader.KERNELS), names
 
 
 # ---------------------------------------------------------------------------
