@@ -9,7 +9,9 @@ in ``BENCHMARK.json`` at the root of the checkout):
 
 Everything that belongs to one configuration, traffic mix or per-layer
 metric is a file of its own, found by its name: ``configs/<config>.json``,
-``traffic/<traffic>/<config>.json`` and ``metrics/<metric>.py``.
+``traffic/<traffic>/<config>.json`` and ``metrics/<metric>.py``; so is a
+served model's plain reference, ``reference/<module>.py``, which its entry
+in the configuration names (``reference/model.py`` where it names none).
 """
 from __future__ import annotations
 

@@ -12,13 +12,18 @@ once), summed over the call's launches; a kernel's bound is the larger of
 operations over the bf16 peak and bytes over the memory peak. Peaks: one
 NVIDIA H100 SXM, NVIDIA's data sheet (dense bf16 989 TFLOP/s, 3.35 TB/s).
 
+These are the counts of the architectures ``reference.model`` computes,
+its ``call_counts``; a configuration that brings its own reference module
+brings its counts with it (``reference``'s contract), and may build them
+from the helpers here.
+
 Where the work depends on the data (the experts that receive rows), the
 count takes what the frame's inputs need: with ``live_experts`` not given,
 every expert that can receive a row (at most ``S * top_k``) does.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -130,10 +135,13 @@ def call_counts(cfg: dict, s: int,
             "kernels": kernels}
 
 
-def kernel_bound_s(cfg: dict, s: int, kernel: str) -> Optional[float]:
+def kernel_bound_s(cfg: dict, s: int, kernel: str,
+                   count: Callable[[dict, int], dict] = call_counts
+                   ) -> Optional[float]:
     """Seconds the chip needs at least for ``kernel``'s launches in one
-    call, each launch bounded alone; None where the call launches none."""
-    c = call_counts(cfg, s)["kernels"].get(kernel)
+    call, each launch bounded alone; None where the call launches none.
+    ``count`` is the model's ``call_counts`` (its reference module's)."""
+    c = count(cfg, s)["kernels"].get(kernel)
     if c is None:
         return None
     flops, nbytes, launches = c

@@ -15,9 +15,17 @@ finishes, drops or abandons every frame that arrived.
 The check (``logit_checks``, ``accounting_check``) holds the logits of a seeded sample of each model's
 calls in the window (``Recorder``) and, once the window has closed, the
 peak memory read and the program's graphs freed, compares them with the
-plain float32 reference (``reference.model``) on the same weights and
-prompts; and compares the engine's report of frames and violations per
-stream with the benchmark's count from its frame records.
+plain float32 reference on the same weights and prompts; and compares the
+engine's report of frames and violations per stream with the benchmark's
+count from its frame records.
+
+Each served model has a reference module (``references``): the one its
+model entry names under ``reference``, ``reference.model`` where it names
+none. A configuration may bring its own as a new file of ``reference/``.
+The module lays out the model's weights, cuts its supernet variants, gives
+the reference's logits and counts a call's operations and bytes (the
+``mfu`` and ``*_roofline`` readers' work, through ``RunData``); the
+harness goes through it for each of these and knows no architecture.
 """
 from __future__ import annotations
 
@@ -30,13 +38,13 @@ import time
 import zlib
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from . import ROOT, counts, traffic, weights
-from .reference import model as ref
 from .trace import Timeline, Tracer
 
 PKG = Path(__file__).resolve().parent
@@ -47,6 +55,11 @@ HELD = 3
 #: the gap over which a position of a routed model counts in its
 #: ``logit_share``
 SHARE_OVER = 0.5
+#: the reference module of a model entry that names none
+DEFAULT_REFERENCE = "model"
+#: what a reference module serves (``reference``'s docstring)
+CONTRACT = ("check_config", "param_layout", "forward", "variant_tree",
+            "call_counts")
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +101,29 @@ def reader(metric: str):
     return importlib.import_module(f"{__package__}.metrics.{metric}").read
 
 
+def reference_module(entry: dict, name: str) -> ModuleType:
+    """The reference module of model entry ``entry`` (served as ``name``):
+    ``reference/<entry["reference"]>.py``, ``reference/model.py`` where the
+    entry names none, checked against ``CONTRACT``; a ``ValueError`` naming
+    the entry where it is missing or incomplete."""
+    mod = entry.get("reference", DEFAULT_REFERENCE)
+    if not isinstance(mod, str) or not mod.isidentifier():
+        raise ValueError(f"{name}: reference {mod!r} is not a module name")
+    full = f"{__package__}.reference.{mod}"
+    try:
+        module = importlib.import_module(full)
+    except ModuleNotFoundError as e:
+        if e.name != full:
+            raise
+        raise ValueError(f"{name}: no reference module {mod!r} "
+                         f"(rtmmbench/reference/{mod}.py)") from None
+    missing = [f for f in CONTRACT if not callable(getattr(module, f, None))]
+    if missing:
+        raise ValueError(f"{name}: reference module {mod!r} lacks "
+                         f"{', '.join(missing)}")
+    return module
+
+
 # ---------------------------------------------------------------------------
 # configuration
 # ---------------------------------------------------------------------------
@@ -116,6 +152,34 @@ def base_of(config: dict, name: str) -> str:
     raise KeyError(name)
 
 
+def references(config: dict) -> dict[str, ModuleType]:
+    """{served model or variant: its reference module}, a variant's its
+    model's: each module checked against the contract
+    (``reference_module``) and each model against its module's
+    ``check_config``, at set-up before any weights are drawn; a
+    ``ValueError`` names the model entry."""
+    refs = {}
+    for role in config["serves"]:
+        ref = reference_module(config[role], role)
+        for name in (role, *config[role].get("supernet", {})):
+            refs[name] = ref
+    models, _ = served_models(config)
+    for name, cfg in models.items():
+        try:
+            refs[name].check_config(cfg)
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from e
+    return refs
+
+
+def make_weights(config: dict, seed: int, device: torch.device,
+                 refs: dict[str, ModuleType]) -> weights.Weights:
+    """The served models' weights from ``seed`` in the configuration's
+    dtype, each laid out by its reference module."""
+    return weights.make({r: config[r]["config"] for r in config["serves"]},
+                        refs, seed, device, getattr(torch, config["dtype"]))
+
+
 def arch_config(name: str, cfg: dict, dtype: str):
     """The program's ``ArchConfig`` of a model entry: every key of the
     entry is one of its fields."""
@@ -129,9 +193,9 @@ def arch_config(name: str, cfg: dict, dtype: str):
     return ArchConfig(name=name, dtype=dtype, scan_layers=False, **kw)
 
 
-def check_layout(name: str, cfg: dict, acfg) -> None:
-    """The program's parameter tree has the reference's leaves and
-    shapes."""
+def check_layout(name: str, cfg: dict, acfg, ref: ModuleType) -> None:
+    """The program's parameter tree has the leaves and shapes of the
+    reference module ``ref``'s layout."""
     from repro_torch.models import model as M
 
     def flat(tree, prefix=()):
@@ -180,7 +244,8 @@ class Recorder:
 
 
 def build_handles(config: dict, w: weights.Weights, device: torch.device,
-                  recorder: Recorder, tracer: Tracer) -> dict:
+                  recorder: Recorder, tracer: Tracer,
+                  refs: dict[str, ModuleType]) -> dict:
     """One ``ModelHandle`` per served model and variant, their graphs not
     captured yet."""
     from repro_torch.graphs import GraphedForward
@@ -194,11 +259,8 @@ def build_handles(config: dict, w: weights.Weights, device: torch.device,
     handles = {}
     for name, cfg in models.items():
         acfg = arch_config(name, cfg, config["dtype"])
-        check_layout(name, cfg, acfg)
-        base = base_of(config, name)
-        tree = w.trees[base]
-        if name != base:
-            tree = weights.first_groups(tree, ref.num_groups(cfg))
+        check_layout(name, cfg, acfg, refs[name])
+        tree = model_tree(config, w, name, refs)
 
         @torch.inference_mode()
         def forward(p, tokens, acfg=acfg):
@@ -278,15 +340,21 @@ class RunData:
     calls: dict[str, int]              # calls in the run, by model
     walls: dict[str, list[float]]      # the engine's lat_samples
     frames: int                        # frames served (calls made)
+    refs: dict[str, ModuleType]        # reference module of each model
 
     def call_flops(self) -> float:
-        return sum(n * counts.call_counts(self.models[m], self.seq[m])["flops"]
+        """The calls' operations, each model's by its reference module."""
+        return sum(n * self.refs[m].call_counts(self.models[m],
+                                                self.seq[m])["flops"]
                    for m, n in self.calls.items())
 
     def kernel_bound_s(self, kernel: str) -> float:
+        """The calls' least seconds for ``kernel``'s launches, each model's
+        counted by its reference module."""
         total = 0.0
         for m, n in self.calls.items():
-            b = counts.kernel_bound_s(self.models[m], self.seq[m], kernel)
+            b = counts.kernel_bound_s(self.models[m], self.seq[m], kernel,
+                                      self.refs[m].call_counts)
             total += n * (b or 0.0)
         return total
 
@@ -328,14 +396,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                                       cell["config"]).read_text())
     models, _ = served_models(config)
     seq = {m: stream_seq(mix, config, m) for m in models}
-    dtype = getattr(torch, config["dtype"])
 
     # ------------------------------------------------------------ set-up
-    w = weights.make({r: config[r]["config"] for r in config["serves"]},
-                     seed, device, dtype)
+    refs = references(config)
+    w = make_weights(config, seed, device, refs)
     recorder = Recorder(seed, HELD)
     tracer = Tracer(trace, seconds, calls=lambda: dict(recorder.calls))
-    handles = build_handles(config, w, device, recorder, tracer)
+    handles = build_handles(config, w, device, recorder, tracer, refs)
     capture(handles, config, mix, seed, device)
     engine = make_engine(config, handles, mix, seed, device)
     queue = traffic.BenchQueue(mix, vocab_of(config), seed, seconds,
@@ -409,7 +476,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                  if n > lo.get(m, 0)}
         walls = {m: engine.lat_samples[m][lo.get(m, 0):hi[m]] for m in calls}
         data = RunData(timeline, models, seq, calls, walls,
-                       sum(calls.values()))
+                       sum(calls.values()), refs)
         for m in cell_metrics(bench, workload, "per_layer"):
             value = reader(m["name"])(data)
             if value is not None:
@@ -432,7 +499,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    checks = logit_checks(config, w, held)
+    checks = logit_checks(config, w, held, refs)
     checks.append(accounting_check(report, frames))
     correct = all(v <= lim for _, v, lim in checks)
     line = {"correct": correct, "attempted": len(in_window),
@@ -500,32 +567,35 @@ def frame_numbers(cfg: dict, err: torch.Tensor) -> dict[str, float]:
     return {"logit_err": float(err.max())}
 
 
-def model_tree(config: dict, w: weights.Weights, name: str) -> dict:
-    """The weights a served model or variant runs on."""
-    models, _ = served_models(config)
+def model_tree(config: dict, w: weights.Weights, name: str,
+               refs: dict[str, ModuleType]) -> dict:
+    """The weights a served model or variant runs on: a variant's cut from
+    its model's by its reference module's ``variant_tree``."""
     base = base_of(config, name)
     tree = w.trees[base]
     if name != base:
-        tree = weights.first_groups(tree, ref.num_groups(models[name]))
+        models, _ = served_models(config)
+        tree = refs[name].variant_tree(tree, models[name])
     return tree
 
 
-def logit_checks(config: dict, w: weights.Weights,
-                 held: dict) -> list[tuple[str, float, float]]:
+def logit_checks(config: dict, w: weights.Weights, held: dict,
+                 refs: dict[str, ModuleType]
+                 ) -> list[tuple[str, float, float]]:
     """(``<number>.<model>``, value, limit) of each served model: each of
     its ``frame_numbers`` over the held frames against the reference, the
-    largest over the frames; the limits are the configuration's
-    ``limits`` by that name."""
+    largest over the frames, against its reference module's ``forward``;
+    the limits are the configuration's ``limits`` by that name."""
     models, _ = served_models(config)
     limits = config.get("limits", {})
     out = []
     for name in sorted(held):
         cfg = models[name]
-        tree = model_tree(config, w, name)
+        tree = model_tree(config, w, name, refs)
         worst: dict[str, float] = {}
         rows, routed = [], []  # routed: (live, flips) a layer
         for tokens, logits in held[name]:
-            want = ref.forward(tree, cfg, tokens, routed=routed)
+            want = refs[name].forward(tree, cfg, tokens, routed=routed)
             err = row_errors(logits, want)
             rows.append(err)
             for key, v in frame_numbers(cfg, err).items():

@@ -10,8 +10,9 @@ cell's traffic for ``--seconds`` as a run does, and each served model's
 held frames are compared with the float32 reference (``harness.logit_checks``);
 a model or variant that served none in the window is called directly on
 as many seeded prompts. Per control seed the same comparison is made of
-the control: the reference with its weight products in float8
-(``reference.model``'s ``quant="fp8"``), at the same frame shapes. Prints
+the control: the reference (each model's reference module,
+``harness.references``) with its weight products in float8
+(``quant="fp8"``), at the same frame shapes. Prints
 per number compared (``harness.frame_numbers``) the program's readings and
 their largest (the lower reading) and the control's and their smallest
 (the upper reading); for a routed model also the share of positions over
@@ -40,15 +41,14 @@ def readings(config: dict, mix: dict, seeds: list[int],
     import torch
 
     from . import harness, traffic, weights
-    from .reference import model as ref
     from .trace import Tracer
     models, _ = harness.served_models(config)
     k = harness.HELD
-    w = weights.make({r: config[r]["config"] for r in config["serves"]},
-                     seeds[0], device, getattr(torch, config["dtype"]))
+    refs = harness.references(config)
+    w = harness.make_weights(config, seeds[0], device, refs)
     recorder = harness.Recorder(seeds[0], k)
     handles = harness.build_handles(config, w, device, recorder,
-                                    Tracer(False))
+                                    Tracer(False), refs)
     harness.capture(handles, config, mix, seeds[0], device)
     print(f"[limits] set-up {time.perf_counter() - T0:.1f} s", flush=True)
 
@@ -83,14 +83,16 @@ def readings(config: dict, mix: dict, seeds: list[int],
             if name not in held:
                 held[name] = [(t, h.fn(h.params, t))
                               for t in prompts(name, seed)]
-        res = [(n, v) for n, v, _ in harness.logit_checks(config, w, held)]
+        res = [(n, v) for n, v, _ in harness.logit_checks(config, w, held,
+                                                          refs)]
         for name, got in held.items():
             if not models[name].get("num_experts"):
                 continue
             worst: dict[str, float] = {}
             for t, logits in got:
-                want = ref.forward(harness.model_tree(config, w, name),
-                                   models[name], t)
+                want = refs[name].forward(
+                    harness.model_tree(config, w, name, refs), models[name],
+                    t)
                 err = harness.row_errors(logits, want)
                 for n, v in shares(name, err).items():
                     worst[n] = max(worst.get(n, 0.0), v)
@@ -106,11 +108,12 @@ def readings(config: dict, mix: dict, seeds: list[int],
         weights.refill(w, seed)
         res = []
         for name in models:
-            tree = harness.model_tree(config, w, name)
+            tree = harness.model_tree(config, w, name, refs)
+            forward = refs[name].forward
             worst = {}
             for t in prompts(name, seed):
-                want = ref.forward(tree, models[name], t)
-                got = ref.forward(tree, models[name], t, quant="fp8")
+                want = forward(tree, models[name], t)
+                got = forward(tree, models[name], t, quant="fp8")
                 err = harness.row_errors(got, want)
                 nums = {f"{key}.{name}": v for key, v in
                         harness.frame_numbers(models[name], err).items()}

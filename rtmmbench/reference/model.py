@@ -28,6 +28,11 @@ TF32 off. ``quant="fp8"`` is the control: the same forward with both
 operands of every weight product rounded to float8 e4m3 under a
 per-tensor scale, the step below the served bfloat16.
 
+This is the reference module of every model entry that names none
+(``reference``'s contract, in its ``__init__``): a configuration whose
+architecture these equations do not cover names a module of its own.
+Its counts of a call are ``counts.call_counts``.
+
 Nothing here imports the program under test, or JAX.
 """
 from __future__ import annotations
@@ -37,6 +42,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..counts import call_counts  # noqa: F401  (the contract's counts)
 
 Tensor = torch.Tensor
 
@@ -78,6 +85,19 @@ def num_groups(cfg: dict) -> int:
         raise ValueError(f"{cfg['num_layers']} layers are not whole groups "
                          f"of {per}")
     return cfg["num_layers"] // per
+
+
+def variant_tree(tree: dict, cfg: dict) -> dict:
+    """A supernet variant's tree: the first ``num_groups(cfg)`` layer groups
+    of ``tree``'s blocks (views: the variant shares the weights), the rest
+    shared as it is."""
+    groups = num_groups(cfg)
+
+    def cut(node):
+        if isinstance(node, dict):
+            return {k: cut(v) for k, v in node.items()}
+        return node[:groups]
+    return {k: cut(v) if k == "blocks" else v for k, v in tree.items()}
 
 
 def _ssm_dims(cfg: dict) -> tuple[int, int, int, int]:

@@ -27,14 +27,13 @@ import sys  # noqa: E402
 def sweep(config: dict, mix: dict, factors: list[float], seconds: float,
           seed: int, device) -> tuple[list[dict], float | None]:
     """One set-up, one window per factor: (a row per factor, the knee)."""
-    import torch
-
-    from . import harness, traffic, weights
+    from . import harness, traffic
     from .trace import Tracer
-    w = weights.make({r: config[r]["config"] for r in config["serves"]},
-                     seed, device, getattr(torch, config["dtype"]))
+    refs = harness.references(config)
+    w = harness.make_weights(config, seed, device, refs)
     handles = harness.build_handles(config, w, device,
-                                    harness.Recorder(seed, 0), Tracer(False))
+                                    harness.Recorder(seed, 0), Tracer(False),
+                                    refs)
     harness.capture(handles, config, mix, seed, device)
     print(f"[sweep] set-up {time.perf_counter() - T0:.1f} s", flush=True)
     rows = []

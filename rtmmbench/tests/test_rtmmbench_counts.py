@@ -77,7 +77,8 @@ def test_mamba_layer_by_hand():
 
 
 def _reference_flops(cfg: dict, seed: int = 0) -> int:
-    w = weights.make({"m": cfg}, seed, torch.device("cpu"), torch.float32)
+    w = weights.make({"m": cfg}, {"m": ref}, seed, torch.device("cpu"),
+                     torch.float32)
     tokens = torch.randint(0, cfg["vocab_size"], (1, S))
     with FlopCounterMode(display=False) as fc:
         ref.forward(w.trees["m"], cfg, tokens)

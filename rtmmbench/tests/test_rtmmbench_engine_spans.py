@@ -60,7 +60,7 @@ def _records(run: int = 0) -> list[dict]:
 
 
 def _run(with_spans: bool = True) -> RunData:
-    run = RunData(_timeline(), {}, {}, {}, {}, 2)
+    run = RunData(_timeline(), {}, {}, {}, {}, 2, {})
     if with_spans:
         run.spans = spans.EngineSpans.read(_records(), run.timeline)
     return run

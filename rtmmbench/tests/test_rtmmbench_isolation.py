@@ -1,7 +1,7 @@
 """What the benchmark loads and reads: no JAX and no JAX package by whole
 top-level module name, nothing of ``benchmarks/``; its command without a
-card; and a configuration, a traffic mix and a per-layer metric added to a
-copy of it as files alone, found by name."""
+card; and a configuration with its own reference module, a traffic mix and
+a per-layer metric added to a copy of it as files alone, found by name."""
 from __future__ import annotations
 
 import json
@@ -66,11 +66,40 @@ def test_command_without_a_card_prints_no_result():
     assert "CUDA" in res.stderr
 
 
+RECORDED = textwrap.dedent('''
+    """A reference module that serves as ``model`` does, recording each
+    function of the contract it serves, with tiny widths of its own."""
+    from . import model
+
+    SERVED = set()
+    TINY = dict(d_model=32, num_heads=4, num_kv_heads=4, d_ff=64,
+                vocab_size=96, ssm_state=8, ssm_heads=4, ssm_chunk=8,
+                shared_attn_every=2)
+
+
+    def _serves(name):
+        def fn(*args, **kwargs):
+            SERVED.add(name)
+            return getattr(model, name)(*args, **kwargs)
+        return fn
+
+
+    check_config = _serves("check_config")
+    param_layout = _serves("param_layout")
+    forward = _serves("forward")
+    variant_tree = _serves("variant_tree")
+    call_counts = _serves("call_counts")
+''')
+
+
 def test_added_files_are_found_by_name(tmp_path):
     """A copy of the benchmark gains a configuration (a tiny audio
-    deployment), its traffic and a per-layer metric as new files and new
-    entries in BENCHMARK.json; a traced run of the new cell finds all three
-    with no edit to any file the copy had."""
+    deployment whose speech model names a reference module of its own),
+    that module, its traffic and a per-layer metric as new files and new
+    entries in BENCHMARK.json; a traced run of the new cell finds all four
+    with no edit to any file the copy had: the speech model's layout,
+    forward, variant cut and counts all come from the new module, whose
+    tiny widths ``tiny.config`` takes."""
     shutil.copytree(PKG, tmp_path / "rtmmbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -79,6 +108,8 @@ def test_added_files_are_found_by_name(tmp_path):
     from rtmmbench.tests import tiny
     cfg = tiny.config("rtmm_audio")
     cfg["name"] = "tiny_audio"
+    cfg["speech"]["reference"] = "recorded"
+    (tmp_path / "rtmmbench/reference/recorded.py").write_text(RECORDED)
     (tmp_path / "rtmmbench/configs/tiny_audio.json").write_text(
         json.dumps(cfg))
     (tmp_path / "rtmmbench/traffic/steady/tiny_audio.json").write_text(
@@ -91,6 +122,9 @@ def test_added_files_are_found_by_name(tmp_path):
     bench["workloads"].append({"name": "tiny.steady", "config": "tiny_audio",
                                "traffic": "steady", "chips": 1,
                                "why": "test"})
+    for m in bench["per_layer"]:
+        if "audio.steady" in m.get("workloads", []):
+            m["workloads"].append("tiny.steady")
     bench["per_layer"].append({"name": "frames_read", "unit": "frames",
                                "better": "higher", "source": "host_clock",
                                "layer": "engine", "moves": "frame_p95_ms",
@@ -100,14 +134,31 @@ def test_added_files_are_found_by_name(tmp_path):
         import json, time, torch
         torch.set_num_threads(1)
         from rtmmbench import harness
+        from rtmmbench.reference import recorded
+        from rtmmbench.tests import tiny
         out = harness.run_cell("tiny.steady", 2**31 + 3, 0.6, True,
                                torch.device("cpu"), time.perf_counter())
-        print(json.dumps(out.line))
+        config = tiny.config("tiny_audio")
+        refs = harness.references(config)
+        print(json.dumps({
+            "line": out.line, "served": sorted(recorded.SERVED),
+            "refs": {m: r.__name__ for m, r in sorted(refs.items())},
+            "tiny_vocab": {r: config[r]["config"]["vocab_size"]
+                           for r in config["serves"]}}))
     """)
     res = _python(["-c", script], tmp_path)
     assert res.returncode == 0, res.stderr[-3000:]
-    line = json.loads(res.stdout.strip().splitlines()[-1])
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    line = out["line"]
+    assert line["correct"], line["checks"]
     assert line["metrics"]["frames_read"]["value"] > 0
-    assert "logit_err.kws" in line["checks"]
+    assert line["metrics"]["mfu"]["value"] > 0
+    assert {"logit_err.kws", "logit_err.speech"} <= set(line["checks"])
+    assert out["served"] == ["call_counts", "check_config", "forward",
+                             "param_layout", "variant_tree"]
+    assert out["refs"] == {"kws": "rtmmbench.reference.model",
+                           "speech": "rtmmbench.reference.recorded",
+                           "speech@v1": "rtmmbench.reference.recorded"}
+    assert out["tiny_vocab"] == {"kws": 128, "speech": 96}
     for p, data in before.items():
         assert p.read_bytes() == data, p

@@ -5,6 +5,7 @@ import pytest
 
 from rtmmbench import counts, harness
 from rtmmbench.harness import RunData
+from rtmmbench.reference import model as ref
 from rtmmbench.trace import Timeline
 
 MS = 1_000_000          # ns
@@ -50,7 +51,7 @@ def _run(timeline) -> RunData:
            "ssm_state": 16, "ssm_heads": 4, "ssm_chunk": 8,
            "layer_pattern": ["mamba"]}
     return RunData(timeline, {"m": cfg}, {"m": 32}, {"m": 2},
-                   {"m": [0.010, 0.020]}, 2)
+                   {"m": [0.010, 0.020]}, 2, {"m": ref})
 
 
 def test_readers():

@@ -1,6 +1,8 @@
 """The plain reference against the program at float32 on the CPU, its
 state-space form against the sequential scan, its parameter layout against
-the program's, and its independence from the program."""
+the program's, and its independence from the program: over every
+configuration in ``BENCHMARK.json``, each model through its own reference
+module."""
 from __future__ import annotations
 
 import ast
@@ -16,9 +18,12 @@ from rtmmbench.tests import tiny
 
 torch.set_num_threads(1)
 
+BENCH = harness.load_benchmark()
+CONFIGS = [c["name"] for c in BENCH["configs"]]
+
 
 def _pairs():
-    for name in ("rtmm_vision", "rtmm_audio"):
+    for name in CONFIGS:
         models, _ = harness.served_models(tiny.config(name))
         for m in models:
             yield name, m
@@ -30,18 +35,16 @@ def test_reference_equals_the_program_in_float32(name, model):
     c = tiny.config(name)
     models, _ = harness.served_models(c)
     cfg = models[model]
-    w = weights.make({r: c[r]["config"] for r in c["serves"]}, 17,
+    refs = harness.references(c)
+    w = weights.make({r: c[r]["config"] for r in c["serves"]}, refs, 17,
                      torch.device("cpu"), torch.float32)
-    base = harness.base_of(c, model)
-    tree = w.trees[base]
-    if model != base:
-        tree = weights.first_groups(tree, ref.num_groups(cfg))
+    tree = harness.model_tree(c, w, model, refs)
     acfg = harness.arch_config(model, cfg, "float32")
     tokens = torch.randint(0, cfg["vocab_size"], (1, 24),
                            generator=torch.Generator().manual_seed(3))
     with torch.inference_mode():
         got = M.forward(tree, acfg, tokens)[0]
-    want = ref.forward(tree, cfg, tokens)
+    want = refs[model].forward(tree, cfg, tokens)
     assert float(harness.row_errors(got, want).max()) < 1e-4
 
 
@@ -59,13 +62,14 @@ def test_state_space_form_equals_the_sequential_scan():
     torch.testing.assert_close(got, want[0], rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["rtmm_vision", "rtmm_audio"])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_layout_equals_the_programs_at_published_widths(name):
-    c = json.loads((PKG / "configs" / f"{name}.json").read_text())
+    c = json.loads(harness.config_file(BENCH, name).read_text())
     models, _ = harness.served_models(c)
+    refs = harness.references(c)
     for model, cfg in models.items():
         harness.check_layout(model, cfg, harness.arch_config(
-            model, cfg, c["dtype"]))
+            model, cfg, c["dtype"]), refs[model])
 
 
 def test_reference_imports_nothing_of_the_program():

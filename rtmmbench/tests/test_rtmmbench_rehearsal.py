@@ -1,22 +1,33 @@
 """Whole runs of the harness on the CPU at tiny width: the engine's report
 against the harness's own accounting, and ``correct`` coming out false
 when the timed path is broken underneath, once for each fault a cell can
-have, and for the control (the float8 reference in the program's place)."""
+have, and for the control (the float8 reference in the program's place):
+over every cell in ``BENCHMARK.json``, each fault in the cells whose models
+can have it."""
 from __future__ import annotations
 
+import json
 import time
 
 import pytest
 import torch
 
 from rtmmbench import harness
-from rtmmbench.reference import model as ref
 from rtmmbench.tests import tiny
 
 torch.set_num_threads(1)
 
-CELLS = {"vision.steady": "rtmm_vision", "audio.steady": "rtmm_audio"}
+BENCH = harness.load_benchmark()
+CELLS = {w["name"]: w["config"] for w in BENCH["workloads"]}
 SEED = 2**31 + 101
+
+
+def _cells_with(key: str) -> list[str]:
+    """The cells in which some served model's entry sets ``key``."""
+    def has(config: str) -> bool:
+        c = json.loads(harness.config_file(BENCH, config).read_text())
+        return any(c[r]["config"].get(key) for r in c["serves"])
+    return [w for w, config in CELLS.items() if has(config)]
 
 
 def _run(workload: str, trace: bool = False, seconds: float = 1.0):
@@ -39,17 +50,16 @@ def test_sound_run_is_correct_and_accounts_every_frame(workload):
     assert line["attempted"] > 20
     assert line["checks"]["accounting_mismatch"]["value"] == 0
     names = {n for n in line["checks"] if n.startswith("logit_")}
-    # every served model compared; the MoE verifier by its share of
-    # positions over a gap
-    if workload == "vision.steady":
-        assert {"logit_err.detector", "logit_share.verifier",
-                "logit_err.context"} <= names
-    else:
-        assert {"logit_err.kws", "logit_err.speech"} <= names
+    # every served model compared; a routed one (vision's verifier) by its
+    # share of positions over a gap
+    c = tiny.config(CELLS[workload])
+    assert {("logit_share." if c[r]["config"].get("num_experts")
+             else "logit_err.") + r for r in c["serves"]} <= names
 
 
-def test_traced_run_reports_the_per_layer_metrics():
-    out = _run("vision.steady", trace=True)
+@pytest.mark.parametrize("workload", sorted(CELLS))
+def test_traced_run_reports_the_per_layer_metrics(workload):
+    out = _run(workload, trace=True)
     line = out.line
     assert line["correct"]
     assert {"mfu"} <= set(line["metrics"])
@@ -119,22 +129,23 @@ def _miscount_frames(monkeypatch):
 def _control(monkeypatch, workload):
     """The reference in float8 put in the program's place."""
     from repro_torch.models import model as M
-    models, _ = harness.served_models(tiny.config(CELLS[workload]))
+    config = tiny.config(CELLS[workload])
+    models, _ = harness.served_models(config)
+    refs = harness.references(config)
 
     def fp8(params, cfg, tokens, *a, **k):
-        out = ref.forward(params, models[cfg.name], tokens, quant="fp8")
+        out = refs[cfg.name].forward(params, models[cfg.name], tokens,
+                                     quant="fp8")
         return out[None], torch.zeros(())
     monkeypatch.setattr(M, "forward", fp8)
 
 
 FAULTS = {
-    "answer_altered": (_alter_one_answer, ["vision.steady", "audio.steady"]),
-    "half_the_frame_left_out": (_drop_half_the_frame,
-                                ["vision.steady", "audio.steady"]),
-    "state_not_carried": (_state_not_carried, ["audio.steady"]),
-    "wrong_expert": (_wrong_expert, ["vision.steady"]),
-    "frames_miscounted": (_miscount_frames,
-                          ["vision.steady", "audio.steady"]),
+    "answer_altered": (_alter_one_answer, list(CELLS)),
+    "half_the_frame_left_out": (_drop_half_the_frame, list(CELLS)),
+    "state_not_carried": (_state_not_carried, _cells_with("ssm_state")),
+    "wrong_expert": (_wrong_expert, _cells_with("num_experts")),
+    "frames_miscounted": (_miscount_frames, list(CELLS)),
 }
 
 
@@ -146,10 +157,13 @@ def test_broken_timed_path_is_not_correct(monkeypatch, fault, workload):
     assert not out.line["correct"], out.line["checks"]
 
 
-def test_a_wrong_expert_fails_the_share_of_positions(monkeypatch):
+@pytest.mark.parametrize("workload", _cells_with("num_experts"))
+def test_a_wrong_expert_fails_the_share_of_positions(monkeypatch, workload):
     _wrong_expert(monkeypatch)
-    share = _run("vision.steady").line["checks"]["logit_share.verifier"]
-    assert share["value"] > share["limit"], share
+    checks = _run(workload).line["checks"]
+    shares = {n: c for n, c in checks.items()
+              if n.startswith("logit_share.")}
+    assert any(c["value"] > c["limit"] for c in shares.values()), shares
 
 
 @pytest.mark.parametrize("workload", sorted(CELLS))

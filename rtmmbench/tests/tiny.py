@@ -6,9 +6,10 @@ from __future__ import annotations
 import copy
 import json
 
-from rtmmbench.harness import PKG
+from rtmmbench.harness import PKG, reference_module
 
-#: each model entry's widths at tiny size, by family
+#: each model entry's widths at tiny size, by family, where its reference
+#: module has no ``TINY`` of its own
 _TINY = {
     "dense": dict(d_model=64, num_heads=4, num_kv_heads=4, d_ff=96,
                   vocab_size=256),
@@ -28,11 +29,14 @@ def config(name: str, limit: float = 0.05, share: float = 0.03,
     on every model's logit gap and ``share`` on a routed model's share of
     positions over ``harness.SHARE_OVER`` (the configuration's own limits
     with ``keep_depth``, which keeps every model's depth and variants as
-    they are)."""
+    they are). A model's tiny widths are its reference module's ``TINY``
+    where it has one."""
     c = json.loads((PKG / "configs" / f"{name}.json").read_text())
     for role in c["serves"]:
         m = c[role]
-        m["config"].update(_TINY[m["config"]["family"]])
+        widths = getattr(reference_module(m, role), "TINY", None)
+        m["config"].update(widths if widths is not None
+                           else _TINY[m["config"]["family"]])
         if keep_depth:
             if m["config"].get("shared_attn_every"):
                 m["config"]["shared_attn_every"] = 6

@@ -17,7 +17,9 @@ dtype and one in float32, each drawn by a few large normal draws of a
   ``dt_bias``: the inverse softplus of a log-uniform on [1e-3, 0.1]
   (Mamba2's), the uniforms taken from the normal draw through its CDF.
 
-Both sides, the program and the reference, are handed the same views.
+The leaves of a model are its reference module's ``param_layout``
+(``harness.references``). Both sides, the program and the reference, are
+handed the same views.
 ``refill`` draws a new seed into the same buffers, so that whatever baked
 in their addresses stays valid.
 """
@@ -25,10 +27,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from types import ModuleType
 
 import torch
 
-from .reference.model import COMPUTE_KINDS, param_layout
+from .reference.model import COMPUTE_KINDS
 
 #: elements a leaf's offset is rounded up to (256 bytes in bfloat16)
 ALIGN = 128
@@ -70,12 +73,14 @@ def _aligned(n: int) -> int:
     return -(-n // ALIGN) * ALIGN
 
 
-def plan(models: dict[str, dict]) -> tuple[list[Leaf], int, int]:
+def plan(models: dict[str, dict], refs: dict[str, ModuleType]
+         ) -> tuple[list[Leaf], int, int]:
     """Every leaf of ``models`` ({name: config entry}) with its offset in
-    its buffer, and the two buffers' lengths."""
+    its buffer, and the two buffers' lengths; each model's leaves from its
+    reference module in ``refs`` ({name: module})."""
     leaves, ends = [], {True: 0, False: 0}
     for name, cfg in models.items():
-        for path, shape, kind, fan_in in param_layout(cfg):
+        for path, shape, kind, fan_in in refs[name].param_layout(cfg):
             compute = kind in COMPUTE_KINDS
             leaf = Leaf(name, path, tuple(shape), kind, fan_in,
                         ends[compute], compute)
@@ -119,10 +124,12 @@ def _draw(w: Weights, seed: int) -> None:
         _shape_leaf(buf[leaf.offset:leaf.offset + leaf.numel], leaf)
 
 
-def make(models: dict[str, dict], seed: int, device: torch.device,
-         dtype: torch.dtype = torch.bfloat16) -> Weights:
-    """The weights of ``models`` drawn from ``seed`` on ``device``."""
-    leaves, n_compute, n_fp32 = plan(models)
+def make(models: dict[str, dict], refs: dict[str, ModuleType], seed: int,
+         device: torch.device, dtype: torch.dtype = torch.bfloat16
+         ) -> Weights:
+    """The weights of ``models`` drawn from ``seed`` on ``device``, laid
+    out as ``plan`` lays them."""
+    leaves, n_compute, n_fp32 = plan(models, refs)
     compute = torch.empty(n_compute, dtype=dtype, device=device)
     fp32 = torch.empty(n_fp32, dtype=torch.float32, device=device)
     trees: dict[str, dict] = {name: {} for name in models}
@@ -142,13 +149,3 @@ def refill(w: Weights, seed: int) -> None:
     """Draw ``seed`` into the same buffers (every view keeps its address)."""
     _draw(w, seed)
 
-
-def first_groups(tree: dict, groups: int) -> dict:
-    """A supernet variant's tree: the first ``groups`` layer groups of
-    ``tree``'s blocks (views: the variant shares the weights), the rest
-    shared as it is."""
-    def cut(node):
-        if isinstance(node, dict):
-            return {k: cut(v) for k, v in node.items()}
-        return node[:groups]
-    return {k: cut(v) if k == "blocks" else v for k, v in tree.items()}
