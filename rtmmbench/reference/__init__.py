@@ -20,4 +20,12 @@ supernet variant's keys replaced):
   model's tree (views);
 * ``call_counts(cfg, s, live_experts=None)``: one call's operations and
   bytes, in ``counts.call_counts``' shape.
+
+and may define, where ``model``'s do not fit:
+
+* ``COMPUTE_KINDS``: the leaf kinds served in the configuration's dtype,
+  the rest in float32 (``weights.plan``);
+* ``TINY``: the widths, and with ``num_layers`` the depth, of its models'
+  stand-ins in the CPU tests (``tests/tiny.py``), and
+  ``TINY_VARIANT_LAYERS``: the depth of each of their supernet variants.
 """

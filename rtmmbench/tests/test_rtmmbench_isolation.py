@@ -1,7 +1,9 @@
 """What the benchmark loads and reads: no JAX and no JAX package by whole
 top-level module name, nothing of ``benchmarks/``; its command without a
 card; and a configuration with its own reference module, a traffic mix and
-a per-layer metric added to a copy of it as files alone, found by name."""
+a per-layer metric added to a copy of it as files alone, found by name and
+held to that module by ``reference_checks``, whose checks bound to
+``reference.model`` fail there."""
 from __future__ import annotations
 
 import json
@@ -66,15 +68,19 @@ def test_command_without_a_card_prints_no_result():
     assert "CUDA" in res.stderr
 
 
-RECORDED = textwrap.dedent('''
-    """A reference module that serves as ``model`` does, recording each
-    function of the contract it serves, with tiny widths of its own."""
+RECORDED = textwrap.dedent("""
+    \"""A reference module that serves as ``model`` does, recording each
+    function of the contract it serves, with compute kinds, counts and
+    tiny widths and depths of its own: its conv bias served in float32,
+    one operation more a call.\"""
     from . import model
 
     SERVED = set()
+    COMPUTE_KINDS = tuple(k for k in model.COMPUTE_KINDS if k != "conv_b")
     TINY = dict(d_model=32, num_heads=4, num_kv_heads=4, d_ff=64,
                 vocab_size=96, ssm_state=8, ssm_heads=4, ssm_chunk=8,
-                shared_attn_every=2)
+                shared_attn_every=2, num_layers=6)
+    TINY_VARIANT_LAYERS = 2
 
 
     def _serves(name):
@@ -88,18 +94,52 @@ RECORDED = textwrap.dedent('''
     param_layout = _serves("param_layout")
     forward = _serves("forward")
     variant_tree = _serves("variant_tree")
-    call_counts = _serves("call_counts")
-''')
 
 
-def test_added_files_are_found_by_name(tmp_path):
-    """A copy of the benchmark gains a configuration (a tiny audio
-    deployment whose speech model names a reference module of its own),
-    that module, its traffic and a per-layer metric as new files and new
-    entries in BENCHMARK.json; a traced run of the new cell finds all four
-    with no edit to any file the copy had: the speech model's layout,
-    forward, variant cut and counts all come from the new module, whose
-    tiny widths ``tiny.config`` takes."""
+    def call_counts(*args, **kwargs):
+        SERVED.add("call_counts")
+        out = dict(model.call_counts(*args, **kwargs))
+        out["flops"] += 1
+        return out
+""")
+
+#: the checks of ``reference_checks`` on the added configuration, as it is
+#: committed and at tiny size, each model held to the module its entry
+#: names (argument ``named``) or to ``reference.model`` (``model``)
+CHECKS = textwrap.dedent("""
+    import json, sys
+    from rtmmbench import harness
+    from rtmmbench.reference import model
+    from rtmmbench.tests import reference_checks as rc, tiny
+    bench = harness.load_benchmark()
+    c = json.loads(harness.config_file(bench, "tiny_audio").read_text())
+    mix = json.loads(harness.traffic_file("steady", "tiny_audio")
+                     .read_text())
+    module_of = {"named": rc.named_module,
+                 "model": lambda entry: model}[sys.argv[1]]
+    checks = {
+        "resolves": lambda: rc.check_resolves(c, module_of),
+        "plan": lambda: rc.check_plan(c, module_of),
+        "plan_tiny": lambda: rc.check_plan(tiny.config("tiny_audio"),
+                                           module_of),
+        "counts": lambda: rc.check_counts(c, mix, module_of)}
+    out = {}
+    for name, check in checks.items():
+        try:
+            check()
+            out[name] = "pass"
+        except AssertionError:
+            out[name] = "fail"
+    print(json.dumps(out))
+""")
+
+
+def _add_files(tmp_path: Path) -> dict[Path, bytes]:
+    """Copy the benchmark to ``tmp_path`` and add, as new files and new
+    entries in BENCHMARK.json, a configuration (a tiny audio deployment
+    whose speech model names the reference module ``recorded``), that
+    module, its traffic, a cell and a per-layer metric; the copy's files
+    as they were before the additions."""
     shutil.copytree(PKG, tmp_path / "rtmmbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -130,6 +170,19 @@ def test_added_files_are_found_by_name(tmp_path):
                                "layer": "engine", "moves": "frame_p95_ms",
                                "workloads": ["tiny.steady"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    return before
+
+
+def test_added_files_are_found_by_name(tmp_path):
+    """A copy of the benchmark gains a configuration, its own reference
+    module, its traffic and a per-layer metric (``_add_files``); a traced
+    run of the new cell finds all four with no edit to any file the copy
+    had: the speech model's layout, compute kinds, forward, variant cut
+    and counts all come from the new module, whose tiny widths and depths
+    ``tiny.config`` takes; and the benchmark's own checks of a
+    configuration (``reference_checks``) pass on it through that
+    module."""
+    before = _add_files(tmp_path)
     script = textwrap.dedent("""
         import json, time, torch
         torch.set_num_threads(1)
@@ -140,11 +193,14 @@ def test_added_files_are_found_by_name(tmp_path):
                                torch.device("cpu"), time.perf_counter())
         config = tiny.config("tiny_audio")
         refs = harness.references(config)
+        models, _ = harness.served_models(config)
         print(json.dumps({
             "line": out.line, "served": sorted(recorded.SERVED),
             "refs": {m: r.__name__ for m, r in sorted(refs.items())},
             "tiny_vocab": {r: config[r]["config"]["vocab_size"]
-                           for r in config["serves"]}}))
+                           for r in config["serves"]},
+            "tiny_layers": {m: cfg["num_layers"]
+                            for m, cfg in models.items()}}))
     """)
     res = _python(["-c", script], tmp_path)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -160,5 +216,24 @@ def test_added_files_are_found_by_name(tmp_path):
                            "speech": "rtmmbench.reference.recorded",
                            "speech@v1": "rtmmbench.reference.recorded"}
     assert out["tiny_vocab"] == {"kws": 128, "speech": 96}
+    assert out["tiny_layers"] == {"kws": 2, "speech": 6, "speech@v1": 2}
+    res = _python(["-c", CHECKS, "named"], tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == {
+        "resolves": "pass", "plan": "pass", "plan_tiny": "pass",
+        "counts": "pass"}
     for p, data in before.items():
         assert p.read_bytes() == data, p
+
+
+def test_checks_bound_to_model_fail_on_the_added_configuration(tmp_path):
+    """The same checks, with every model held to ``reference.model`` as
+    they held every model before a configuration could name its module,
+    fail on the added configuration: its speech model resolves elsewhere,
+    serves its conv bias in float32 and counts one operation more."""
+    _add_files(tmp_path)
+    res = _python(["-c", CHECKS, "model"], tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == {
+        "resolves": "fail", "plan": "fail", "plan_tiny": "fail",
+        "counts": "fail"}

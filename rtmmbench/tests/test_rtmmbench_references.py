@@ -1,12 +1,14 @@
 """Each model's reference module, as its configuration names it: the
-committed configurations resolve to ``reference.model`` and lay out, draw
-and count as that module does; an entry naming a missing module, or one
-without the whole contract, fails at set-up before any weights are drawn,
-naming the entry."""
+committed configurations resolve to the modules their entries name
+(``reference.model`` for each) and lay out, draw and count as those modules
+do (``reference_checks``), with their weights, plans and tiny stand-ins
+pinned byte for byte; an entry naming a missing module, or one without
+the whole contract, fails at set-up before any weights are drawn, naming
+the entry."""
 from __future__ import annotations
 
+import hashlib
 import json
-import math
 import sys
 import time
 import types
@@ -16,7 +18,7 @@ import torch
 
 from rtmmbench import counts, harness, weights
 from rtmmbench.reference import model as ref
-from rtmmbench.tests import tiny
+from rtmmbench.tests import reference_checks, tiny
 
 torch.set_num_threads(1)
 
@@ -24,65 +26,96 @@ BENCH = harness.load_benchmark()
 CONFIGS = [c["name"] for c in BENCH["configs"]]
 SEED = 2**31 + 211
 
+#: sha256 of each committed configuration's compute and float32 buffers at
+#: tiny widths from ``SEED`` on the CPU, of its plan at published widths,
+#: and of its tiny stand-ins (``tiny.config``, cut and ``keep_depth``):
+#: none moves while the committed cells' weights and rehearsals stay as
+#: they are (a configuration added later is held by the checks alone)
+PINNED = {
+    "rtmm_vision": dict(
+        compute="bb066b7524d0ab0b7861448a56d6f7927ea51e6b886d66f4c7693bcebf31f72e",
+        fp32="3fea222512d5ad43ac708bd517b844b532410be0ba2ad0c51461cd19b322c296",
+        plan="8121e7b4367429b7767b937f0b7cf97bc0915eb9802f72e635e14a22ef3967fd",
+        tiny="e4afd03bc94315e5069b5ad206b52e4c3e504504e08b3f3b23845f12cfe66236",
+        tiny_keep_depth="f45cb5adf0910fba8ba8e169faf7f7b268a3c8c98c7301d802513f2cb40b8869"),
+    "rtmm_audio": dict(
+        compute="b7ca6b54a6e42ca0c9efde6c5c21683d1389767bc2d930ff93c555e803554805",
+        fp32="1deb7fbc392efdc1b280bdc02c0af0088415c643dababd4f0d3c9f356dd5c93f",
+        plan="9c2fe79799ba0812f4760639c9793845820d895dd1e8d48e28bcf9ea2680903d",
+        tiny="f36f28120d39732fd5898f078cbd328714e33bc44229bf1f39ea68b5df350e16",
+        tiny_keep_depth="69cece181cc2566479ff7763d2c3dbcfd512836ccfb4e090d055eef0e63c056a"),
+}
+
 
 def _published(name: str) -> dict:
     return json.loads(harness.config_file(BENCH, name).read_text())
 
 
+def _sha(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
 @pytest.mark.parametrize("name", CONFIGS)
 def test_committed_configurations_resolve_to_model(name):
+    """Each served model and variant resolves to the module its entry
+    names; an entry that names none, as every committed one, to
+    ``reference.model`` itself, whose counts are ``counts.py``'s."""
     c = _published(name)
-    refs = harness.references(c)
-    models, _ = harness.served_models(c)
-    assert set(refs) == set(models)
-    assert all(r is ref for r in refs.values())
+    reference_checks.check_resolves(c)
+    for role in c["serves"]:
+        if "reference" not in c[role]:
+            assert reference_checks.named_module(c[role]) is ref
+    assert ref.call_counts is counts.call_counts
 
 
 @pytest.mark.parametrize("width", ["tiny", "published"])
 @pytest.mark.parametrize("name", CONFIGS)
 def test_plan_is_the_model_layout_enumerated(name, width):
-    """The same leaves in the same order at the same offsets as
-    ``reference.model.param_layout`` gives them, leaf after leaf aligned to
-    ``weights.ALIGN`` in its buffer: the buffers a seed fills are the same
-    bytes."""
-    c = tiny.config(name) if width == "tiny" else _published(name)
-    models = {r: c[r]["config"] for r in c["serves"]}
-    leaves, n_compute, n_fp32 = weights.plan(models, harness.references(c))
-    want, ends = [], {True: 0, False: 0}
-    for model, cfg in models.items():
-        for path, shape, kind, fan_in in ref.param_layout(cfg):
-            compute = kind in ref.COMPUTE_KINDS
-            want.append((model, tuple(path), tuple(shape), kind, fan_in,
-                         ends[compute], compute))
-            end = ends[compute] + math.prod(shape)
-            ends[compute] = -(-end // weights.ALIGN) * weights.ALIGN
-    got = [(x.model, x.path, x.shape, x.kind, x.fan_in, x.offset, x.compute)
-           for x in leaves]
-    assert got == want
-    assert (n_compute, n_fp32) == (ends[True], ends[False])
+    """The same leaves in the same order at the same offsets as each
+    model's module's ``param_layout`` and compute kinds give them."""
+    reference_checks.check_plan(
+        tiny.config(name) if width == "tiny" else _published(name))
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_run_data_counts_are_the_counts_of_counts_py(name):
     """``RunData``'s operations and kernel bounds, each model's through its
-    module, equal ``counts.py``'s at published widths and frame lengths."""
-    c = _published(name)
+    module (``counts.py``'s for an entry naming none), at published widths
+    and frame lengths."""
     cell = next(w for w in BENCH["workloads"] if w["config"] == name)
     mix = json.loads(harness.traffic_file(cell["traffic"], name).read_text())
-    models, _ = harness.served_models(c)
-    seq = {m: harness.stream_seq(mix, c, m) for m in models}
-    calls = {m: i + 3 for i, m in enumerate(models)}
-    run = harness.RunData(None, models, seq, calls, {}, sum(calls.values()),
-                          harness.references(c))
-    assert run.call_flops() == sum(
-        n * counts.call_counts(models[m], seq[m])["flops"]
-        for m, n in calls.items())
-    for kernel in ("flash", "gmm", "ssd"):
-        want = 0.0      # added in turn, as the readers always summed
-        for m, n in calls.items():
-            want += n * (counts.kernel_bound_s(models[m], seq[m], kernel)
-                         or 0.0)
-        assert run.kernel_bound_s(kernel) == want
+    reference_checks.check_counts(_published(name), mix)
+
+
+@pytest.mark.parametrize("name", list(PINNED))
+def test_committed_weights_are_the_pinned_bytes(name):
+    """Both buffers a seed fills at tiny widths, and the plan at published
+    widths, are the pinned ones."""
+    c = tiny.config(name)
+    w = harness.make_weights(c, SEED, torch.device("cpu"),
+                             harness.references(c))
+    assert _sha(w.compute.view(torch.int16).numpy().tobytes()) \
+        == PINNED[name]["compute"]
+    assert _sha(w.fp32.numpy().tobytes()) == PINNED[name]["fp32"]
+    pub = _published(name)
+    leaves, n_compute, n_fp32 = weights.plan(
+        {r: pub[r]["config"] for r in pub["serves"]},
+        harness.references(pub))
+    plan = json.dumps([[x.model, list(x.path), list(x.shape), x.kind,
+                        x.fan_in, x.offset, x.compute] for x in leaves]
+                      + [n_compute, n_fp32])
+    assert _sha(plan.encode()) == PINNED[name]["plan"]
+
+
+@pytest.mark.parametrize("keep_depth", [False, True])
+@pytest.mark.parametrize("name", list(PINNED))
+def test_committed_tiny_stand_ins_are_pinned(name, keep_depth):
+    """The committed configurations' tiny stand-ins, key for key, are the
+    pinned ones: their modules give no ``TINY`` depth, so the cut of each
+    model's family holds."""
+    c = tiny.config(name, keep_depth=keep_depth)
+    key = "tiny_keep_depth" if keep_depth else "tiny"
+    assert _sha(json.dumps(c, sort_keys=True).encode()) == PINNED[name][key]
 
 
 def _partial_module(monkeypatch) -> str:

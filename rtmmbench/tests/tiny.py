@@ -30,25 +30,27 @@ def config(name: str, limit: float = 0.05, share: float = 0.03,
     positions over ``harness.SHARE_OVER`` (the configuration's own limits
     with ``keep_depth``, which keeps every model's depth and variants as
     they are). A model's tiny widths are its reference module's ``TINY``
-    where it has one."""
+    where it has one; its tiny depth is ``TINY``'s ``num_layers``, and each
+    supernet variant's the module's ``TINY_VARIANT_LAYERS``, where the
+    module gives them, else the cut of its family (``_tiny_depth``)."""
     c = json.loads((PKG / "configs" / f"{name}.json").read_text())
     for role in c["serves"]:
         m = c[role]
-        widths = getattr(reference_module(m, role), "TINY", None)
-        m["config"].update(widths if widths is not None
-                           else _TINY[m["config"]["family"]])
+        module = reference_module(m, role)
+        widths = getattr(module, "TINY", None)
+        if widths is None:
+            widths = _TINY[m["config"]["family"]]
+        m["config"].update({k: v for k, v in widths.items()
+                            if k != "num_layers"})
         if keep_depth:
             if m["config"].get("shared_attn_every"):
                 m["config"]["shared_attn_every"] = 6
             continue
-        if m["config"]["family"] == "hybrid":
-            m["config"]["num_layers"] = 4
-            m["supernet"] = {v: {"num_layers": 2} for v in m.get("supernet", {})}
-        elif "supernet" in m:
-            m["config"]["num_layers"] = 2
-            m["supernet"] = {v: {"num_layers": 1} for v in m["supernet"]}
-        else:
-            m["config"]["num_layers"] = min(m["config"]["num_layers"], 2)
+        depth, variant_depth = _tiny_depth(m)
+        m["config"]["num_layers"] = widths.get("num_layers", depth)
+        if "supernet" in m:
+            n = getattr(module, "TINY_VARIANT_LAYERS", variant_depth)
+            m["supernet"] = {v: {"num_layers": n} for v in m["supernet"]}
     if not keep_depth:
         c["limits"] = {}
         for role in c["serves"]:
@@ -58,6 +60,17 @@ def config(name: str, limit: float = 0.05, share: float = 0.03,
                 else:
                     c["limits"][f"logit_err.{name}"] = limit
     return c
+
+
+def _tiny_depth(m: dict) -> tuple[int, int]:
+    """(depth, each supernet variant's depth) of model entry ``m`` at tiny
+    size by its family: a hybrid 4 and 2, a model with variants 2 and 1,
+    any other at most 2."""
+    if m["config"]["family"] == "hybrid":
+        return 4, 2
+    if "supernet" in m:
+        return 2, 1
+    return min(m["config"]["num_layers"], 2), 1
 
 
 def mix(name: str, seq: int = 16, fps: float = 40.0,

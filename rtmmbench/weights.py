@@ -18,8 +18,11 @@ dtype and one in float32, each drawn by a few large normal draws of a
   (Mamba2's), the uniforms taken from the normal draw through its CDF.
 
 The leaves of a model are its reference module's ``param_layout``
-(``harness.references``). Both sides, the program and the reference, are
-handed the same views.
+(``harness.references``); the kinds served in the compute dtype are the
+module's ``COMPUTE_KINDS``, ``reference.model``'s where it defines none, so
+that a module may keep a kind, such as a router's correction bias, in
+float32. Both sides, the program and the reference, are handed the same
+views.
 ``refill`` draws a new seed into the same buffers, so that whatever baked
 in their addresses stays valid.
 """
@@ -77,11 +80,14 @@ def plan(models: dict[str, dict], refs: dict[str, ModuleType]
          ) -> tuple[list[Leaf], int, int]:
     """Every leaf of ``models`` ({name: config entry}) with its offset in
     its buffer, and the two buffers' lengths; each model's leaves from its
-    reference module in ``refs`` ({name: module})."""
+    reference module in ``refs`` ({name: module}), in the compute buffer
+    where the module's ``COMPUTE_KINDS`` (``reference.model``'s where it
+    defines none) hold its kind."""
     leaves, ends = [], {True: 0, False: 0}
     for name, cfg in models.items():
+        kinds = getattr(refs[name], "COMPUTE_KINDS", COMPUTE_KINDS)
         for path, shape, kind, fan_in in refs[name].param_layout(cfg):
-            compute = kind in COMPUTE_KINDS
+            compute = kind in kinds
             leaf = Leaf(name, path, tuple(shape), kind, fan_in,
                         ends[compute], compute)
             ends[compute] = _aligned(ends[compute] + leaf.numel)
