@@ -27,7 +27,11 @@ Phases, each of which raises (exit code != 0) on any failure:
    launched (the wgmma kernel for bf16), which the serving, decode and MoE
    phases check on their launch counters, and every SSD call launches each
    of its three kernels once by the profiler's kernel names (as phase 7's
-   profiled prefills do);
+   profiled prefills do); Mamba2's front (``csrc/mamba_front.cu``) at
+   mamba2-130m's and zamba2-2.7b's served [1, 1024] in bfloat16 against its
+   plain version in float32 (x, B and C within one bfloat16 rounding),
+   timed with a cold L2 beside the operations it replaced (``plain_ms``)
+   and its byte bound;
 4. model check: the four architectures at smoke width, float32, forward on
    the card (kernels) against forward on the CPU (plain versions);
 5. serving: the serve_rtmm workload through ``repro_torch.launch.serve`` and
@@ -655,6 +659,17 @@ def check_ssd_launches(rows, calls: int, label: str) -> None:
     return by_name
 
 
+def check_front_launches(rows, calls: int, label: str) -> int:
+    """A profiled model call (``rows`` from ``kernel_rows`` or
+    ``profile_fn``) must launch Mamba2's front kernel once a Mamba2 block,
+    ``calls`` times (its SSD calls), by the profiler's kernel name."""
+    got = sum(count for _, count, key in rows if "mamba_front_kernel" in key)
+    if got != calls:
+        raise AssertionError(f"{label}: mamba_front_kernel {got} times by "
+                             f"name, expected {calls}")
+    return got
+
+
 def reset_ssd_counters(ssd_mod) -> None:
     ssd_mod.launches = 0
 
@@ -743,6 +758,74 @@ def check_ssd(torch, gen):
                                 library_ms=None)
             del x, dt, B, C, y, fin, y_ref, fin_ref
             torch.cuda.empty_cache()
+    return headline
+
+
+# Mamba2's front at the served [1, 1024]: label, d_inner, state, heads
+FRONT_FULL_WIDTH = [
+    ("mamba2-130m", 1536, 128, 24),
+    ("zamba2-2.7b", 5120, 64, 80),
+]
+
+
+def check_mamba_front(torch, gen):
+    """The front's kernel against its plain version in float32 on the same
+    bf16 inputs (x, B and C within one bfloat16 rounding, dt within
+    float32's tolerance), one launch a call, timed with a cold L2 beside
+    the operations it replaced (the plain version on the card, and the
+    copy of x the SSD binding then made) and its byte bound. Returns
+    zamba2-2.7b's numbers."""
+    from repro_torch.kernels import mamba_front as front_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd as ssd_mod
+
+    flush = cold_l2(torch)
+    headline = None
+    for label, d_inner, n, h in FRONT_FULL_WIDTH:
+        c = d_inner + 2 * n
+        width = 2 * d_inner + 2 * n + h
+        zx = torch.randn((1, 1024, width), generator=gen,
+                         device="cuda").bfloat16()
+        w = (0.3 * torch.randn((4, c), generator=gen, device="cuda")
+             ).bfloat16()
+        cb = (0.1 * torch.randn((c,), generator=gen, device="cuda")
+              ).bfloat16()
+        dtb = torch.randn((h,), generator=gen, device="cuda") - 3.0
+        kw = dict(xbc_at=d_inner, dt_at=d_inner + c, state=n)
+        run = lambda: ops.mamba_front(zx, w, cb, dtb, **kw)
+
+        def plain():
+            x, bmat, cmat, dt = ref.mamba_front(zx, w, cb, dtb, **kw)
+            return ssd_mod._aligned(x), bmat, cmat, dt
+
+        before = front_mod.launches
+        got = run()
+        torch.cuda.synchronize()
+        if front_mod.launches != before + 1:
+            raise AssertionError(f"mamba_front {label}: launches "
+                                 f"{front_mod.launches - before}, not 1")
+        want = ref.mamba_front(zx.float(), w.float(), cb.float(), dtb, **kw)
+        err = 0.0
+        for name, a, b in zip("xBC", got, want):   # one rounding, 2 ulp of f32
+            err = max(err, close(f"mamba_front {label} {name}", a, b,
+                                 1e-6, 2.0 ** -8 + 2.0 ** -20))
+        close(f"mamba_front {label} dt", got[3], want[3], TOL["float32"],
+              TOL["float32"])
+        rel = max(rel_l2(a, b) for a, b in zip(got[:3], want[:3]))
+        ms = time_ms(run, reps=KERNEL_REPS, flush=flush)
+        plain_ms = time_ms(plain, reps=KERNEL_REPS, flush=flush)
+        nbytes = front_mod.hbm_bytes(1, 1024, d_inner, n, h, 2, 2)
+        bound_ms, bound_by = bound(0, nbytes)
+        log(f"[kernels] mamba_front {label} bf16 B=1 S=1024 d_inner={d_inner}"
+            f" N={n} H={h}: max_abs_err={err} rel_l2_err={rel} ms={ms} "
+            f"plain_ms={plain_ms} bound_ms={bound_ms} ({bound_by}, {nbytes} "
+            f"bytes) bound_share={bound_ms / ms} library_ms=None")
+        if label == "zamba2-2.7b":
+            headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None)
+        del zx, got, want
+        torch.cuda.empty_cache()
     return headline
 
 
@@ -918,6 +1001,7 @@ def serve(torch) -> tuple[dict, dict]:
     from repro_torch.convert import to_compute_dtype
     from repro_torch.graphs import GraphedForward
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_front as front_mod
     from repro_torch.kernels import ssd as ssd_mod
     from repro_torch.launch.serve import build_handle
     from repro_torch.models import model as M
@@ -1002,21 +1086,26 @@ def serve(torch) -> tuple[dict, dict]:
 
     def counted_run(engine, q, duration_s: float, what: str):
         """One engine run; the kernels' launch counters must match the
-        layers of the model calls it made."""
+        layers of the model calls it made (the SSD and Mamba2's front once
+        a kws block)."""
         for h in handles:
             calls[h.name] = 0
         reset_flash_counters(fa)
         reset_ssd_counters(ssd_mod)
+        front_mod.launches = 0
         report = engine.run(q, duration_s=duration_s)
-        launches = {"flash_attention": fa.launches, "ssd": ssd_mod.launches}
+        launches = {"flash_attention": fa.launches, "ssd": ssd_mod.launches,
+                    "mamba_front": front_mod.launches}
         flash_by_kernel(fa, what)
         log(f"[serve] {what}: model calls {calls}; kernel launches {launches}")
         want_flash = sum(calls[n] * attn_layers[n] for n in calls)
         want_ssd = calls["kws"] * kws.cfg.num_layers
-        if launches != {"flash_attention": want_flash, "ssd": want_ssd}:
+        if launches != {"flash_attention": want_flash, "ssd": want_ssd,
+                        "mamba_front": want_ssd}:
             raise AssertionError(f"{what}: launch counts {launches} do not "
                                  f"match the served calls: flash "
-                                 f"{want_flash}, ssd {want_ssd}")
+                                 f"{want_flash}, ssd and mamba_front "
+                                 f"{want_ssd}")
         if not (launches["flash_attention"] > 0 and launches["ssd"] > 0):
             raise AssertionError(f"{what}: a kernel was not launched: "
                                  f"{launches}")
@@ -1438,14 +1527,18 @@ def fleet_phase(torch, handles: dict, card: str) -> dict:
 
                 def check(rows):
                     check_flash_launches(rows, heads, label, "fleet")
-                    return check_ssd_launches(
-                        rows, sum(c[0] == "ssd" for c in expect), label)
+                    ssd_calls = sum(c[0] == "ssd" for c in expect)
+                    by_name = check_ssd_launches(rows, ssd_calls, label)
+                    by_name["mamba_front_kernel"] = check_front_launches(
+                        rows, ssd_calls, label)
+                    return by_name
                 by_name = profiled_replay(
                     torch, lambda: h.fn(h.params, tokens), check, label)
                 if len(h.fn.graphs) != captured:
                     raise AssertionError(f"fleet {node.name} {m}: a call "
                                          f"after registration captured again")
-                log(f"[fleet] {label}: ssd kernels by name {by_name}")
+                log(f"[fleet] {label}: ssd and front kernels by name "
+                    f"{by_name}")
     log(f"[fleet] phase {time.perf_counter() - t0:.1f} s; {card}")
     return launches
 
@@ -1838,9 +1931,11 @@ def decode_full_width(torch, arch: str, prompt: int, steps: int,
     check_flash_launches(rows, heads, f"{arch} prefill")
     ssd_calls = sum(c[0] == "ssd" for c in prefill_calls)
     by_name = check_ssd_launches(rows, ssd_calls, f"{arch} prefill")
+    by_name["mamba_front_kernel"] = check_front_launches(
+        rows, ssd_calls, f"{arch} prefill")
     if ssd_calls:
-        log(f"[decode] {arch} prefill: ssd kernels by name in one profiled "
-            f"call {by_name}, {ssd_calls} of each expected")
+        log(f"[decode] {arch} prefill: ssd and front kernels by name in one "
+            f"profiled call {by_name}, {ssd_calls} of each expected")
     del params, cache, cache0, gstep, dec_logits, fwd, want
     torch.cuda.empty_cache()
     return dict(launches=launches, ms_per_token=med,
@@ -2680,9 +2775,10 @@ def kernel_modules() -> dict:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gmm as gmm_mod
+    from repro_torch.kernels import mamba_front as front_mod
     from repro_torch.kernels import ssd as ssd_mod
     return {"flash_attention": fa, "ssd": ssd_mod, "decode_attention": dec,
-            "gmm": gmm_mod, "adamw": adamw_mod}
+            "gmm": gmm_mod, "adamw": adamw_mod, "mamba_front": front_mod}
 
 
 def kernel_counts() -> dict:
@@ -2699,7 +2795,7 @@ def reset_kernel_counters() -> None:
 
 
 class train_launches:
-    """Raises on exit unless, inside, none of the four forward kernels
+    """Raises on exit unless, inside, none of the forward kernels
     launched (the train step goes through the torch path: no forward kernel
     has a backward) and the AdamW kernel launched ``adamw`` times (one
     launch a params leaf a step, graphed steps through their replays).
@@ -3548,7 +3644,8 @@ def train_restart(torch) -> tuple[dict, dict]:
         launches = kernel_counts()
         check_taps(f"{arch} restored from step {step}, prefill of {prompt}",
                    calls, expected_calls(torch, M, cfg, prompt), "train")
-        want_l = dict.fromkeys(launches, 0) | {"ssd": cfg.num_layers}
+        want_l = dict.fromkeys(launches, 0) | {"ssd": cfg.num_layers,
+                                               "mamba_front": cfg.num_layers}
         if launches != want_l:
             raise AssertionError(f"{arch} prefill: launches {launches}, "
                                  f"expected {want_l}")
@@ -4010,7 +4107,8 @@ def mesh_restart(torch, mesh, handoff: dict) -> dict:
         reset_kernel_counters()
         logits, _ = lm.prefill(tokens, cache)
         launches = kernel_counts()
-    want_l = dict.fromkeys(launches, 0) | {"ssd": cfg.num_layers}
+    want_l = dict.fromkeys(launches, 0) | {"ssd": cfg.num_layers,
+                                           "mamba_front": cfg.num_layers}
     if launches != want_l:
         raise AssertionError(f"{arch} mesh-restored prefill: launches "
                              f"{launches}, expected {want_l}")
@@ -4615,12 +4713,13 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
     ptxas_report(build.build_log(), ("gmm_", "ssd_", "flash_wgmma_kernel",
-                                     "decode_", "adamw_"))
+                                     "decode_", "adamw_", "mamba_front_"))
 
     # 3. kernels
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash = check_flash(torch, gen)
     ssd = check_ssd(torch, gen)
+    front = check_mamba_front(torch, gen)
 
     # 4. model: card against CPU
     check_models(torch)
@@ -4705,6 +4804,11 @@ def main() -> int:
              replaces="src/repro/training/optim.py:75 apply_updates "
                       "(XLA-fused under jax.jit)",
              launches=launches["adamw"], **adamw),
+        dict(name="mamba_front", route="cuda",
+             source="src/repro_torch/kernels/csrc/mamba_front.cu",
+             replaces="src/repro/models/ssm.py ssm_apply's conv, silu, "
+                      "split and softplus (XLA-fused under jax.jit)",
+             launches=launches["mamba_front"], **front),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -39,7 +39,8 @@ _lib: ctypes.CDLL | None = None
 #: seconds the last build took (0.0 when the library was already built)
 build_seconds = 0.0
 #: the binding modules whose launch counters ``counts`` reads, by name
-BINDINGS = ("flash_attention", "ssd", "decode_attention", "gmm", "adamw")
+BINDINGS = ("flash_attention", "ssd", "decode_attention", "gmm", "adamw",
+            "mamba_front")
 #: per thread: the launches recorded into the CUDA graph being captured
 _recording = threading.local()
 
@@ -229,6 +230,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         f, f, f, f, f, f,           # b1, 1 - b1, b2, 1 - b2, eps, weight decay
         p]                          # cudaStream_t
     lib.repro_adamw_fwd.restype = i
+    lib.repro_mamba_front_fwd.argtypes = [
+        p, ctypes.c_int64, ctypes.c_int64,  # zxbcdt, its batch and row strides
+        i, i,                       # offsets of (x|B|C) and dt in a row
+        p, p, p,                    # conv_w, conv_b, dt_bias
+        p, p, p, p,                 # x, B, C, dt
+        i, i,                       # zxbcdt dtype, conv_w/conv_b dtype: 0 float32, 1 bfloat16
+        i, i, i, i, i, i,           # Bsz, S, d_inner, N, H, K
+        p]                          # cudaStream_t
+    lib.repro_mamba_front_fwd.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

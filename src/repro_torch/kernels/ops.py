@@ -30,6 +30,7 @@ from . import adamw as _adamw
 from . import decode_attention as _dec
 from . import flash_attention as _fa
 from . import gmm as _gmm
+from . import mamba_front as _front
 from . import ref
 from . import ssd as _ssd
 
@@ -140,6 +141,21 @@ def ssd(
     else:
         y, fin = ref.ssd_chunked(x, dt, A, B, C, D, chunk=ch)
     return y[:, :s], fin
+
+
+def mamba_front(zxbcdt: torch.Tensor, conv_w: torch.Tensor,
+                conv_b: torch.Tensor, dt_bias: torch.Tensor, *, xbc_at: int,
+                dt_at: int, state: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """Mamba2's front, in_proj's output [B, S, width] to the SSD scan's
+    inputs (x [B,S,H,P], B, C [B,S,N] and dt [B,S,H]; see
+    ``ref.mamba_front``): the kernel on CUDA tensors, which reads zxbcdt in
+    place, the plain version on CPU and meta tensors."""
+    kw = dict(xbc_at=xbc_at, dt_at=dt_at, state=state)
+    if _on_cuda(zxbcdt, conv_w, conv_b, dt_bias):
+        return _front.mamba_front(zxbcdt, conv_w, conv_b, dt_bias, **kw)
+    return ref.mamba_front(zxbcdt, conv_w, conv_b, dt_bias, **kw)
 
 
 def gmm(x_sorted: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,

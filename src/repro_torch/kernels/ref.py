@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -2.3819763e38
 
@@ -178,6 +179,55 @@ def ssd_chunked(
                            states_in)
     y = y_intra + y_inter + D.float()[None, None, None, :, None] * x32
     return y.reshape(b, s, h, p).to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# Mamba2's front: causal conv, SiLU, the split of x, B and C, dt's softplus
+# ---------------------------------------------------------------------------
+
+
+def causal_conv(xbc: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d over [B, S, C] with kernel K: K-1 zeros of
+    left padding, weights [K, C] as the JAX package stores them, rounded to
+    xbc's dtype."""
+    k, c = conv_w.shape
+    w = conv_w.to(xbc.dtype).t().reshape(c, 1, k)          # [C, 1, K]
+    xt = F.pad(xbc.transpose(1, 2), (k - 1, 0))            # [B, C, S+k-1]
+    return F.conv1d(xt, w, groups=c).transpose(1, 2)
+
+
+def front_tail(conv: torch.Tensor, conv_b: torch.Tensor, dt: torch.Tensor,
+               dt_bias: torch.Tensor, *, state: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """The front after the causal conv: the conv's output [B, S, C] and
+    in_proj's dt [B, S, H] to the scan's inputs, x [B, S, H, P] in the
+    conv's dtype (silu of the conv plus its bias rounded to that dtype), B
+    and C [B, S, state] float32 (the same, widened) and dt [B, S, H] float32
+    (softplus of dt + dt_bias). H is dt_bias's length."""
+    h = dt_bias.shape[0]
+    xbc = F.silu(conv + conv_b.to(conv.dtype))
+    d_inner = xbc.shape[-1] - 2 * state
+    x = xbc[..., :d_inner]
+    bmat = xbc[..., d_inner: d_inner + state].float()
+    cmat = xbc[..., d_inner + state:].float()
+    dt = F.softplus(dt.float() + dt_bias[None, None, :])
+    return x.reshape(x.shape[0], x.shape[1], h, d_inner // h), bmat, cmat, dt
+
+
+def mamba_front(zxbcdt: torch.Tensor, conv_w: torch.Tensor,
+                conv_b: torch.Tensor, dt_bias: torch.Tensor, *, xbc_at: int,
+                dt_at: int, state: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """in_proj's output [B, S, width], (x|B|C) at ``xbc_at`` and dt at
+    ``dt_at`` of each row, to the scan's inputs: ``causal_conv`` of the
+    (x|B|C) slice, then ``front_tail``."""
+    c, h = conv_w.shape[1], dt_bias.shape[0]
+    xbc = zxbcdt[..., xbc_at: xbc_at + c]
+    dt = zxbcdt[..., dt_at: dt_at + h]
+    return front_tail(causal_conv(xbc, conv_w), conv_b, dt, dt_bias,
+                      state=state)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,17 @@
 x stays in the compute dtype while B, C and dt are fp32, so the SSD kernel
 takes mixed dtypes, as the Pallas one does.
 
+The front, everything between in_proj and the scan (the conv, its bias,
+silu, the split of x, B and C, dt's softplus), is ``ops.mamba_front`` on
+the kernel path with plain tensors: on CUDA one kernel
+(``kernels/csrc/mamba_front.cu``) that reads in_proj's output in place and
+writes the scan's inputs, on CPU and meta tensors ``kernels.ref.mamba_front``,
+the same operations one by one. The torch path (training and the dry-run
+pass ``ssm_impl="torch"``) and DTensors run the plain version's two halves
+themselves: the conv as ``_causal_conv`` (on each rank's shard on a mesh),
+the rest as ``kernels.ref.front_tail``. ``ssm_decode`` keeps its one-step
+conv over the carried state.
+
 The decode state is the last K-1 pre-conv inputs (fp32) and the SSM state
 [B,H,N,P] (fp32). ``ssm_decode`` updates it in place and returns the dict
 it was given, as the KV cache is (``attention.py``).
@@ -21,12 +32,13 @@ the reference.
 
 On a mesh, two ops run on each rank's shard (``placement.per_shard``),
 with batch and channel or head shards kept and the sequence whole:
-``_causal_conv``'s depthwise conv, which DTensor sends to its
-tensor-parallel handler (that takes only its own layouts, in torch 2.11
-not even replicated inputs with this padding, and has no backward for a
-depthwise conv sharded over batch or channels), and the torch path's SSD
-scan (``kernels.ref.ssd_chunked``, plain PyTorch: DTensor in torch 2.11
-has no sharding rule for the flip in its cumsum's backward). The in and
+``_causal_conv``'s depthwise conv (``kernels.ref.causal_conv``), which
+DTensor sends to its tensor-parallel handler (that takes only its own
+layouts, in torch 2.11 not even replicated inputs with this padding, and
+has no backward for a depthwise conv sharded over batch or channels), and
+the torch path's SSD scan (``kernels.ref.ssd_chunked``, plain PyTorch:
+DTensor in torch 2.11 has no sharding rule for the flip in its cumsum's
+backward). The in and
 out projections go through ``layers.dense`` (the batch and sequence shards
 of the activations kept, the weight's FSDP shard gathered), and the scan's
 output, flattened back to [B, S, d_inner], is ``placement.pinned``: in the
@@ -41,7 +53,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Partial
+from torch.distributed.tensor import DTensor, Partial
 
 from .. import resolve_device
 from ..kernels import ops as kops
@@ -128,18 +140,27 @@ def _split_proj(cfg: SSMConfig, zxbcdt: Tensor):
 
 
 def _causal_conv(params: dict, xbc: Tensor) -> Tensor:
-    """Depthwise causal conv1d over [B, S, C] with kernel K: k-1 zeros of
-    left padding, weights [K, C] as the JAX package stores them."""
-    k, c = params["conv_w"].shape
-
-    def conv(xbc, conv_w):
-        w = conv_w.to(xbc.dtype).t().reshape(c, 1, k)          # [C, 1, K]
-        xt = F.pad(xbc.transpose(1, 2), (k - 1, 0))            # [B, C, S+k-1]
-        return F.conv1d(xt, w, groups=c).transpose(1, 2)
-    return per_shard(conv, (xbc, {"batch": 0, "channel": 2}),
+    """``kref.causal_conv``, on each rank's batch and channel shard on a
+    mesh."""
+    return per_shard(kref.causal_conv, (xbc, {"batch": 0, "channel": 2}),
                      (params["conv_w"], {"channel": 1}),
-                     out={"batch": 0, "channel": 2}) + \
-        params["conv_b"].to(xbc.dtype)
+                     out={"batch": 0, "channel": 2})
+
+
+def _front(params: dict, cfg: SSMConfig, zxbcdt: Tensor, xbc_pre: Tensor,
+           dt: Tensor, impl: str) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The scan's inputs from in_proj's output: (x [B,S,H,P] in the compute
+    dtype, B, C [B,S,N] and dt [B,S,H] float32). ``ops.mamba_front`` (one
+    kernel on CUDA, reading ``zxbcdt`` in place) for the kernel path on
+    plain tensors; on the torch path and on DTensors, ``_causal_conv`` and
+    ``kref.front_tail``."""
+    if impl == "kernel" and not isinstance(zxbcdt, DTensor):
+        return kops.mamba_front(zxbcdt, params["conv_w"], params["conv_b"],
+                                params["dt_bias"], xbc_at=cfg.d_inner,
+                                dt_at=cfg.d_inner + cfg.conv_channels,
+                                state=cfg.state)
+    return kref.front_tail(_causal_conv(params, xbc_pre), params["conv_b"],
+                           dt, params["dt_bias"], state=cfg.state)
 
 
 def _run_ssd(cfg: SSMConfig, xh: Tensor, dt: Tensor, a: Tensor, bmat: Tensor,
@@ -176,13 +197,8 @@ def ssm_full(params: dict, cfg: SSMConfig, u: Tensor,
     zxbcdt = dense("bsd,dk->bsk", u, params["in_proj"].to(dtype),
                    {"inner": 1}, {"inner": 2})
     z, xbc_pre, dt = _split_proj(cfg, zxbcdt)
-    xbc = F.silu(_causal_conv(params, xbc_pre))
-    x = xbc[..., : cfg.d_inner]
-    bmat = xbc[..., cfg.d_inner: cfg.d_inner + cfg.state].float()
-    cmat = xbc[..., cfg.d_inner + cfg.state:].float()
-    dt = F.softplus(dt.float() + params["dt_bias"][None, None, :])
+    xh, bmat, cmat, dt = _front(params, cfg, zxbcdt, xbc_pre, dt, impl)
     a = -torch.exp(params["A_log"])
-    xh = x.reshape(b, s, cfg.heads, cfg.head_dim)
     xh = constrain(xh, ("batch", "act_seq", "act_heads", None))
     y, fin = _run_ssd(cfg, xh, dt, a, bmat, cmat, params["D"], impl)
     y = pinned(y.reshape(b, s, cfg.d_inner))

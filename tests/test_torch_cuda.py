@@ -17,6 +17,7 @@ probabilities before the PV product, and the output), each by at most the
 bfloat16 unit roundoff 2**-8.
 """
 import os
+import subprocess
 import sys
 import threading
 import time
@@ -34,6 +35,7 @@ from repro_torch.kernels import adamw as adamw_mod
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm as gmm_mod
+from repro_torch.kernels import mamba_front as front_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd as ssd_mod
 
@@ -134,6 +136,13 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.float().cpu().numpy()
 
 
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want||, in float32."""
+    got, want = got.float(), want.float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLASH_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -192,7 +201,10 @@ SSD_DEEP = [(ch, p, n) for ch in (32, 64, 128, 256) for p, n in ((16, 32), (64, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunk, p, n", SSD_DEEP)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_kernel_at_depth_matches_chunked(cuda, chunk, p, n, dtype):
+def test_ssd_kernel_at_depth_matches_chunked(cuda, chunk, p, n, dtype,
+                                            request):
+    if _alone(request):
+        return
     b, h, s = 2, 3, 16 * chunk
     rng = np.random.default_rng(13)
     x = torch.from_numpy(rng.standard_normal((b, s, h, p), np.float32))
@@ -448,9 +460,11 @@ def test_decode_bf16_kernel_replays_in_a_cuda_graph(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", DECODE_MERGED, ids=[c[0] for c in DECODE_MERGED])
-def test_decode_bf16_call_runs_one_kernel(cuda, case):
+def test_decode_bf16_call_runs_one_kernel(cuda, case, request):
     """By the profiler's kernel names: one bf16 call is one launch of the
     mma kernel, and neither fp32 kernel runs."""
+    if _alone(request):
+        return
     _, s, n, kv, h, win, cap, p = case
     rng = np.random.default_rng(41)
     q, k, v = _decode_inputs(rng, 1, s, n, kv, h, torch.bfloat16, cuda)
@@ -583,6 +597,39 @@ def test_flash_bf16_launches_the_wgmma_kernel(cuda, h):
     np.testing.assert_allclose(_np(got), _np(want), **TOL[torch.bfloat16])
 
 
+#: set in the interpreters that ``_alone`` starts
+_ALONE = "REPRO_TEST_ALONE"
+#: the verbose pytest output of each of those interpreters, by test function
+_ALONE_RUNS: dict[str, str] = {}
+
+
+def _alone(request) -> bool:
+    """Run the calling test's function, all its cases, by itself in a new
+    interpreter (once, at its first case), assert that this case passed
+    there and return True; in that interpreter return False, so that the
+    test runs its body. The tests that read the profiler's kernel records
+    call it: on the card (torch 2.11, CUDA 12.8) a long run of other tests
+    since the last profile can leave every later profile of the process
+    with no kernel, whichever tests they were, so a profile's records are
+    only taken in a process that has run nothing but its own test."""
+    if os.environ.get(_ALONE):
+        return False
+    function = request.node.nodeid.split("[")[0]
+    if function not in _ALONE_RUNS:
+        root = request.config.rootpath
+        path = [str(root / "src"), os.environ.get("PYTHONPATH", "")]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, path)),
+                   **{_ALONE: "1"})
+        run = subprocess.run(
+            [sys.executable, "-m", "pytest", "-v", "--noconftest", "-p",
+             "no:cacheprovider", function],
+            cwd=root, env=env, capture_output=True, text=True, timeout=900)
+        _ALONE_RUNS[function] = run.stdout + run.stderr
+    out = _ALONE_RUNS[function]
+    assert f"{request.node.nodeid} PASSED" in out, out[-6000:]
+    return True
+
+
 def _kernel_names(fn):
     """The device kernels ``fn`` runs (after one warm-up call), by the
     profiler's names, with their counts. The call waits 20 ms inside the
@@ -608,10 +655,12 @@ def _kernel_names(fn):
 @pytest.mark.cuda
 @pytest.mark.parametrize("h", [96, 160])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_call_runs_its_head_dim_instance(cuda, h, dtype):
+def test_flash_call_runs_its_head_dim_instance(cuda, h, dtype, request):
     """By the profiler's kernel names: one call is one launch of the
     kernel instance of its head dim (no padded head dim, no copy of q, k,
     v), wgmma for bfloat16 and the CUDA-core kernel for float32."""
+    if _alone(request):
+        return
     rng = np.random.default_rng(h)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 200, 4, h), np.float32))
                .to(cuda, dtype) for _ in range(3))
@@ -621,6 +670,163 @@ def test_flash_call_runs_its_head_dim_instance(cuda, h, dtype):
     assert f"{name}<{h}>" in next(iter(kernels)), kernels
     if dtype == torch.bfloat16:
         assert fa.wgmma_stages(h) == (2 if h == 160 else 4)
+
+
+# Mamba2's front at the served widths: (label, d_inner, state, heads)
+FRONT_SERVED = [("mamba2-130m", 1536, 128, 24), ("zamba2-2.7b", 5120, 64, 80)]
+# the smoke width: rows of 292 values
+FRONT_SMOKE = ("smoke", 128, 16, 4)
+
+
+def _front_inputs(device, d_inner, n, h, b, s, dtype, weights=torch.float32,
+                  pad=0):
+    """in_proj's output [B, S, width] at the real row stride (plus ``pad``
+    columns past the row, so that zxbcdt is a slice), with dt large enough
+    on some heads to cross softplus's threshold of 20, and the front's
+    weights (conv_w and conv_b in ``weights``); the kwargs of the call."""
+    g = torch.Generator(device=device).manual_seed(d_inner + s)
+    c = d_inner + 2 * n
+    width = 2 * d_inner + 2 * n + h
+    zx = torch.randn((b, s, width + pad), generator=g, device=device)
+    zx[..., d_inner + c: width] *= 12.0
+    zx = zx.to(dtype)[..., :width]
+    w = (0.3 * torch.randn((4, c), generator=g, device=device)).to(weights)
+    cb = (0.1 * torch.randn((c,), generator=g, device=device)).to(weights)
+    dtb = torch.randn((h,), generator=g, device=device) - 3.0
+    return (zx, w, cb, dtb), dict(xbc_at=d_inner, dt_at=d_inner + c, state=n)
+
+
+def _front_plain32(args, kw):
+    """The plain version in float32 on the CPU, on the weights rounded to
+    zxbcdt's dtype as the kernel rounds them."""
+    zx, w, cb, dtb = args
+    return ref.mamba_front(zx.float().cpu(), w.to(zx.dtype).float().cpu(),
+                           cb.to(zx.dtype).float().cpu(), dtb.cpu(), **kw)
+
+
+def _check_front(got, want, dtype):
+    """x, B and C within one rounding to ``dtype`` of the float32 plain
+    version (the kernel rounds each once, after float32 arithmetic whose
+    SiLU division is within 2 ulp: 2**-20 beside bf16's 2**-8; float32: the
+    reference's tolerance), dt within float32's."""
+    one = dict(rtol=2.0 ** -8 + 2.0 ** -20, atol=1e-6) \
+        if dtype == torch.bfloat16 else TOL[torch.float32]
+    for name, a, b, tol in zip("xBCd", got, want, (one, one, one,
+                                                   TOL[torch.float32])):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(_np(a), b.numpy(), **tol, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 3, 255, 1024])
+@pytest.mark.parametrize("case", FRONT_SERVED, ids=[c[0] for c in FRONT_SERVED])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_front_kernel_matches_plain(cuda, dtype, case, s):
+    """The front's kernel at the served widths, B 2, S shorter than the taps,
+    a ragged tile and the served 1024, against its plain version in
+    float32; at S 255 zxbcdt is a slice of a wider buffer."""
+    _, d_inner, n, h = case
+    args, kw = _front_inputs(cuda, d_inner, n, h, 2, s, dtype,
+                             pad=8 if s == 255 else 0)
+    before = front_mod.launches
+    got = ops.mamba_front(*args, **kw)
+    torch.cuda.synchronize()
+    assert front_mod.launches == before + 1
+    assert got[0].dtype == dtype and got[0].is_contiguous()
+    _check_front(got, _front_plain32(args, kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["float32", "compute"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_front_kernel_at_the_smoke_width(cuda, dtype, weights):
+    """The smoke width, B 2 and a ragged tile, with the weights in float32
+    or, as the benchmark serves them, in the compute dtype."""
+    _, d_inner, n, h = FRONT_SMOKE
+    args, kw = _front_inputs(cuda, d_inner, n, h, 2, 19, dtype,
+                             weights=torch.float32 if weights == "float32"
+                             else dtype)
+    _check_front(ops.mamba_front(*args, **kw), _front_plain32(args, kw),
+                 dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_ssm_full_front_kernel_against_the_present_path(cuda, arch,
+                                                        monkeypatch):
+    """A served-width bf16 Mamba2 block at [1, 1024] through the kernel,
+    and through the operations it replaced (``ref.mamba_front`` on the
+    card): the front's x, B and C within one bf16 rounding of each other in
+    relative L2, the kernel's x nearer the block's float32 run (it rounds
+    once where the present path rounds three times); the block's output
+    and final state within ``BF16_REL_L2``; one launch, none on the present
+    path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    cfg = M.ssm_cfg_for(get_config(arch))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    p = ssm.ssm_init(g, cfg)
+    for k in ("in_proj", "out_proj", "conv_w", "conv_b"):
+        p[k] = p[k].bfloat16()
+    p["conv_b"] = (0.1 * torch.randn(p["conv_b"].shape, generator=g,
+                                     device=cuda)).bfloat16()
+    u = torch.randn((1, 1024, cfg.d_model), generator=g,
+                    device=cuda).bfloat16()
+    p32 = M.tree_map(lambda t: t.float(), p)
+    fronts = {}
+
+    def tap(key, fn):
+        def f(*args, **kw):
+            fronts[key] = fn(*args, **kw)
+            return fronts[key]
+        return f
+    runs = {}
+    with torch.inference_mode():
+        for key, fn, params, x in (("kernel", ops.mamba_front, p, u),
+                                   ("present", ref.mamba_front, p, u),
+                                   ("float32", ops.mamba_front, p32,
+                                    u.float())):
+            monkeypatch.setattr(ssm.kops, "mamba_front", tap(key, fn))
+            before = front_mod.launches
+            runs[key] = ssm.ssm_full(params, cfg, x)
+            torch.cuda.synchronize()
+            assert front_mod.launches - before == (key != "present")
+    for i in range(3):
+        assert rel_l2(fronts["kernel"][i], fronts["present"][i]) <= 2.0 ** -8
+    assert rel_l2(fronts["kernel"][0], fronts["float32"][0]) < \
+        rel_l2(fronts["present"][0], fronts["float32"][0])
+    np.testing.assert_allclose(_np(fronts["kernel"][3]),
+                               _np(fronts["present"][3]), **TOL[torch.float32])
+    for i in range(2):
+        assert rel_l2(runs["kernel"][i], runs["present"][i]) <= BF16_REL_L2
+    assert torch.equal(runs["kernel"][2], runs["present"][2])
+
+
+@pytest.mark.cuda
+def test_mamba_front_launches_once_a_mamba2_block(cuda):
+    """A forward launches the front's kernel once per Mamba2 block and the
+    SSD once: mamba2-130m's 24 and zamba2-2.7b's 54 at their published
+    configs, and none in qwen1.5-4b's (no Mamba2 block)."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.convert import init_compute_params
+    from repro_torch.models import model as M
+    for cfg, blocks in ((get_config("mamba2-130m"), 24),
+                        (get_config("zamba2-2.7b"), 54),
+                        (smoke_config("qwen1.5-4b"), 0)):
+        cfg = dataclasses.replace(cfg, dtype="bfloat16", scan_layers=False)
+        g = torch.Generator(device=cuda).manual_seed(0)
+        params = init_compute_params(g, cfg, cuda, torch.bfloat16)
+        tokens = torch.zeros((1, 256), dtype=torch.int32, device=cuda)
+        before = (front_mod.launches, ssd_mod.launches)
+        with torch.inference_mode():
+            logits = M.forward(params, cfg, tokens)[0]
+        assert torch.isfinite(logits).all()
+        assert (front_mod.launches - before[0],
+                ssd_mod.launches - before[1]) == (blocks, blocks), cfg.name
+        del params, logits
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda
@@ -643,11 +849,11 @@ def test_served_models_launch_the_kernels(cuda):
     tokens = torch.zeros((1, 16), dtype=torch.int32, device=cuda)
     for h in (h_att, h_ssm):
         h.fn(h.params, tokens)                   # captures
-    fa.launches = ssd_mod.launches = 0
+    fa.launches = ssd_mod.launches = front_mod.launches = 0
     for h in (h_att, h_ssm):
         out = h.fn(h.params, tokens)
         assert torch.isfinite(out).all()
-    assert (fa.launches, ssd_mod.launches) == (2, 2)
+    assert (fa.launches, ssd_mod.launches, front_mod.launches) == (2, 2, 2)
 
 
 def _flash_ssd_smoke(device):
@@ -715,8 +921,9 @@ class _YieldingInt(int):
 
 @pytest.mark.parametrize("mod,kernel", [(fa, "wgmma"), (ssd_mod, None),
                                         (dec, "mma"), (gmm_mod, "wgmma"),
-                                        (adamw_mod, None)],
-                         ids=["flash", "ssd", "decode", "gmm", "adamw"])
+                                        (adamw_mod, None), (front_mod, None)],
+                         ids=["flash", "ssd", "decode", "gmm", "adamw",
+                              "mamba_front"])
 def test_launch_counters_lose_no_update_between_threads(mod, kernel):
     """More threads than cores raising one binding's counters, as serving
     engines on several threads do, through the function each wrapper calls
@@ -1046,13 +1253,16 @@ def _grad_inputs(name, device):
         return ((r(1, 2, 64, dtype=bf), r(1, 128, 2, 64, dtype=bf),
                  r(1, 128, 2, 64, dtype=bf),
                  torch.tensor([70], dtype=torch.int32, device=device)), {})
+    if name == "mamba_front":     # d_inner 128, state 16, 4 heads
+        return ((r(1, 64, 296, dtype=bf), r(4, 160), r(160), r(4)),
+                {"xbc_at": 128, "dt_at": 288, "state": 16})
     return ((r(96, 64, dtype=bf), r(2, 64, 64, dtype=bf),
              torch.tensor([40, 56], dtype=torch.int32, device=device)), {})
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["flash_attention", "ssd", "decode_attention",
-                                  "gmm"])
+                                  "gmm", "mamba_front"])
 def test_kernels_raise_on_inputs_that_require_grad(cuda, name):
     from repro_torch.kernels import ops
     args, kw = _grad_inputs(name, cuda)
@@ -1197,7 +1407,7 @@ def test_graphed_replay_adds_the_capture_s_launches(cuda):
     from repro_torch.launch.serve import build_handle
     for arch, layers, want in (
             ("gemma2-2b", 4, {"flash_attention": (4, {"wgmma": 4})}),
-            ("mamba2-130m", 3, {"ssd": (3, {})})):
+            ("mamba2-130m", 3, {"ssd": (3, {}), "mamba_front": (3, {})})):
         h = build_handle(arch, "m", layers=layers)
         tokens = _tokens(5, (1, 32))
         h.fn(h.params, tokens)
@@ -1222,6 +1432,32 @@ def _decode_model(arch, seed=0):
     params = to_compute_dtype(M.init_params(gen, cfg, "cuda"),
                               M.compute_dtype(cfg))
     return cfg, params
+
+
+@pytest.mark.cuda
+def test_mamba_front_replays_in_a_cuda_graph(cuda):
+    """The front captured in a CUDA graph (``GraphedForward``) and replayed
+    on new data gives the eager call's outputs bit for bit; the capture
+    records one launch, which each replay adds."""
+    from repro_torch import graphs
+    _, d_inner, n, h = FRONT_SERVED[1]
+    (zx, w, cb, dtb), kw = _front_inputs(cuda, d_inner, n, h, 1, 1024,
+                                         torch.bfloat16)
+    fn = graphs.GraphedForward(
+        lambda p, t: dict(zip("xBCd", ops.mamba_front(t, p["w"], p["b"],
+                                                      p["d"], **kw))))
+    params = {"w": w, "b": cb, "d": dtb}
+    fn(params, zx)                                      # captures
+    (graph,) = fn.graphs.values()
+    assert graph.launches == {"mamba_front": (1, {})}
+    for scale in (0.5, 2.0):
+        new = (zx.float() * scale).bfloat16()
+        before = front_mod.launches
+        got = fn(params, new)
+        assert front_mod.launches == before + 1
+        want = ops.mamba_front(new, w, cb, dtb, **kw)
+        for name, a in zip("xBCd", want):
+            assert torch.equal(got[name], a), name
 
 
 @pytest.mark.cuda
@@ -1545,7 +1781,8 @@ def test_graphed_train_step_replays_add_the_capture_s_launches(cuda):
         (graphs.WARMUP_CALLS + 1) * n_leaves
     assert after["adamw"][0] - before["adamw"][0] == \
         (graphs.WARMUP_CALLS + replays) * n_leaves
-    for name in ("flash_attention", "ssd", "decode_attention", "gmm"):
+    for name in ("flash_attention", "ssd", "decode_attention", "gmm",
+                 "mamba_front"):
         assert after[name] == before[name]
 
 

@@ -34,6 +34,7 @@ from repro_torch.kernels import adamw as adamw_mod
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm as gmm_mod
+from repro_torch.kernels import mamba_front as front_mod
 from repro_torch.kernels import ssd as ssd_mod
 from repro_torch.models import model as TM
 
@@ -188,8 +189,8 @@ def test_graphed_forward_runs_the_eager_function_on_cpu_tensors():
 @pytest.mark.parametrize("mod,name,kernel", [
     (fa, "flash_attention", "wgmma"), (ssd_mod, "ssd", None),
     (dec, "decode_attention", "mma"), (gmm_mod, "gmm", "wgmma_splitk"),
-    (adamw_mod, "adamw", None)],
-    ids=["flash", "ssd", "decode", "gmm", "adamw"])
+    (adamw_mod, "adamw", None), (front_mod, "mamba_front", None)],
+    ids=["flash", "ssd", "decode", "gmm", "adamw", "mamba_front"])
 def test_recording_holds_a_capture_s_launches_until_added(monkeypatch, mod,
                                                          name, kernel):
     """A binding's ``_count`` inside ``build.recording`` (a capture) leaves

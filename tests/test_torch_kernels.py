@@ -8,6 +8,7 @@ definition (the chunked form sums in another order). The CUDA kernels are
 held to the plain versions on the card in tests/test_torch_cuda.py.
 """
 import importlib.util
+import math
 import re
 from pathlib import Path
 
@@ -21,6 +22,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gmm as gmm_mod
+from repro_torch.kernels import mamba_front as front_mod
 from repro_torch.kernels import ssd as ssd_mod
 
 FLASH_CASES = [
@@ -235,6 +237,168 @@ def test_ssd_kernel_names_are_the_roofline_readers():
     names = re.findall(
         r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
     assert names and set(names) <= set(reader.KERNELS), names
+
+
+# ---------------------------------------------------------------------------
+# Mamba2's front
+# ---------------------------------------------------------------------------
+
+
+def _front_case(arch: str, b: int, s: int, dtype, weights: str, seed=0):
+    """(ssm config, params, zxbcdt) at ``arch``'s smoke width: weights as
+    ``ssm_init`` draws them, conv_w and conv_b in float32 or, as the
+    benchmark serves them, in ``dtype``."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    cfg = M.ssm_cfg_for(smoke_config(arch))
+    gen = torch.Generator().manual_seed(seed)
+    p = ssm.ssm_init(gen, cfg)
+    p["conv_b"] = 0.1 * torch.randn(p["conv_b"].shape, generator=gen)
+    if weights == "compute":
+        p["conv_w"], p["conv_b"] = p["conv_w"].to(dtype), p["conv_b"].to(dtype)
+    zx = torch.randn((b, s, cfg.proj_out), generator=gen).to(dtype)
+    return cfg, p, zx
+
+
+def _front_before(p, cfg, zxbcdt):
+    """What ``ssm_full`` ran between in_proj and the scan before the front
+    was one op, as it was written there."""
+    di = cfg.d_inner
+    xbc = zxbcdt[..., di: di + cfg.conv_channels]
+    dt = zxbcdt[..., di + cfg.conv_channels:]
+    k, c = p["conv_w"].shape
+    w = p["conv_w"].to(xbc.dtype).t().reshape(c, 1, k)
+    xt = torch.nn.functional.pad(xbc.transpose(1, 2), (k - 1, 0))
+    conv = torch.nn.functional.conv1d(xt, w, groups=c).transpose(1, 2)
+    xbc = torch.nn.functional.silu(conv + p["conv_b"].to(xbc.dtype))
+    x = xbc[..., :di]
+    bmat = xbc[..., di: di + cfg.state].float()
+    cmat = xbc[..., di + cfg.state:].float()
+    dt = torch.nn.functional.softplus(dt.float() + p["dt_bias"][None, None, :])
+    return (x.reshape(*x.shape[:2], cfg.heads, cfg.head_dim), bmat, cmat, dt)
+
+
+def _front_kw(cfg):
+    return dict(xbc_at=cfg.d_inner, dt_at=cfg.d_inner + cfg.conv_channels,
+                state=cfg.state)
+
+
+@pytest.mark.parametrize("weights", ["float32", "compute"])
+@pytest.mark.parametrize("b, s", [(2, 19), (1, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_ref_mamba_front_is_the_sequence_it_replaced(arch, dtype, b, s,
+                                                     weights):
+    """The plain version, and ``ops.mamba_front`` on CPU tensors (which
+    launches nothing), equal the operations ``ssm_full`` ran one by one
+    bit for bit, S shorter than the conv's taps included."""
+    cfg, p, zx = _front_case(arch, b, s, dtype, weights)
+    want = _front_before(p, cfg, zx)
+    args = (zx, p["conv_w"], p["conv_b"], p["dt_bias"])
+    before = front_mod.launches
+    for got in (ref.mamba_front(*args, **_front_kw(cfg)),
+                ops.mamba_front(*args, **_front_kw(cfg))):
+        assert [t.dtype for t in got] == [dtype] + [torch.float32] * 3
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert front_mod.launches == before
+
+
+def test_mamba_front_on_meta_tensors_gives_the_shapes():
+    """The dry-run's meta tensors take the plain version: shapes and
+    dtypes only, no launch."""
+    cfg, p, zx = _front_case("mamba2-130m", 2, 7, torch.bfloat16, "float32")
+    meta = [t.to("meta") for t in (zx, p["conv_w"], p["conv_b"],
+                                   p["dt_bias"])]
+    before = front_mod.launches
+    x, bmat, cmat, dt = ops.mamba_front(*meta, **_front_kw(cfg))
+    assert x.device.type == "meta"
+    assert (x.shape, x.dtype) == ((2, 7, cfg.heads, cfg.head_dim),
+                                  torch.bfloat16)
+    assert [(t.shape, t.dtype) for t in (bmat, cmat, dt)] == [
+        ((2, 7, cfg.state), torch.float32)] * 2 + [((2, 7, cfg.heads),
+                                                    torch.float32)]
+    assert front_mod.launches == before
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values, contiguous, one element past an aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _odd_stride(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t``'s values in a view whose stride along ``dim`` (batch or row)
+    is one element longer, so odd: the kernel loads channel pairs as one
+    word, which such rows would split."""
+    shape = list(t.shape)
+    shape[dim + 1:] = [math.prod(shape[dim + 1:]) + 1]
+    out = torch.empty(shape, dtype=t.dtype)[..., :-1].unflatten(
+        -1, t.shape[dim + 1:])
+    out.copy_(t)
+    return out
+
+
+FRONT_REFUSED = {
+    "zxbcdt dtype": lambda zx, w, b, d, kw: ((zx.half(), w, b, d), kw),
+    "conv_w dtype": lambda zx, w, b, d, kw: ((zx, w.half(), b, d), kw),
+    "dt_bias must be float32": lambda zx, w, b, d, kw: ((zx, w, b, d.double()),
+                                                        kw),
+    "conv taps": lambda zx, w, b, d, kw: ((zx, w[:3], b, d), kw),
+    "must be even": lambda zx, w, b, d, kw: ((zx, w, b, torch.zeros(5)),
+                                             kw | {"state": 15}),
+    "xbc offset": lambda zx, w, b, d, kw: (
+        (zx, w, b, d), kw | {"xbc_at": zx.shape[-1] - w.shape[1] + 1}),
+    "dt offset": lambda zx, w, b, d, kw: (
+        (zx, w, b, d), kw | {"dt_at": zx.shape[-1] - d.shape[0] + 1}),
+    "stride 1": lambda zx, w, b, d, kw: (
+        (zx.transpose(1, 2).contiguous().transpose(1, 2), w, b, d), kw),
+    "aligned to a pair": lambda zx, w, b, d, kw: ((zx, _misaligned(w), b, d),
+                                                  kw),
+    "address is not": lambda zx, w, b, d, kw: ((_misaligned(zx), w, b, d), kw),
+    "batch stride is not": lambda zx, w, b, d, kw: ((_odd_stride(zx, 0), w, b,
+                                                    d), kw),
+    "row stride is not": lambda zx, w, b, d, kw: ((_odd_stride(zx, 1), w, b,
+                                                  d), kw),
+    "xbc offset is not": lambda zx, w, b, d, kw: (
+        (zx, w, b, d), kw | {"xbc_at": kw["xbc_at"] + 1}),
+    "CUDA": lambda zx, w, b, d, kw: ((zx, w, b, d), kw),
+}
+
+
+@pytest.mark.parametrize("match", list(FRONT_REFUSED))
+def test_mamba_front_binding_refuses_what_it_does_not_take(match):
+    """The binding raises before the device on what the kernel does not
+    take (the last case: valid inputs, but on the CPU)."""
+    cfg, p, zx = _front_case("mamba2-130m", 2, 9, torch.bfloat16, "float32")
+    args, kw = FRONT_REFUSED[match](zx, p["conv_w"], p["conv_b"],
+                                    p["dt_bias"], _front_kw(cfg))
+    before = front_mod.launches
+    with pytest.raises(ValueError, match=match):
+        front_mod.mamba_front(*args, **kw)
+    assert front_mod.launches == before
+
+
+def test_mamba_front_kernel_is_no_roofline_readers_kernel():
+    """The benchmark's roofline readers sum device time by kernel names
+    (whole words): the front's kernel must be none of them, or it would
+    count as the SSD's, flash's or gmm's."""
+    root = Path(__file__).resolve().parents[1]
+    src = (root / "src" / "repro_torch" / "kernels" / "csrc" /
+           "mamba_front.cu").read_text()
+    names = re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
+    assert names == ["mamba_front_kernel"]
+    for reader in ("ssd_roofline", "flash_roofline", "gmm_roofline"):
+        spec = importlib.util.spec_from_file_location(
+            reader, root / "rtmmbench" / "metrics" / f"{reader}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        words = re.compile(r"\b(" + "|".join(map(re.escape, mod.KERNELS))
+                           + r")\b")
+        assert not any(words.search(n) for n in names), (reader, names)
 
 
 # ---------------------------------------------------------------------------

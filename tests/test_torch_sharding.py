@@ -367,7 +367,7 @@ def test_restore_onto_a_mesh_resumes_exactly(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "ssd",
-                                  "decode_attention", "gmm"])
+                                  "decode_attention", "gmm", "mamba_front"])
 def test_kernel_bindings_refuse_a_dtensor(name):
     import importlib
     from repro_torch.kernels.build import DTensorInputError

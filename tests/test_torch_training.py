@@ -439,11 +439,14 @@ def _kernel_inputs(name):
     if name == "decode_attention":
         return ((r(1, 2, 16), r(1, 32, 2, 16), r(1, 32, 2, 16),
                  torch.tensor([20], dtype=torch.int32)), {})
+    if name == "mamba_front":     # d_inner 128, state 16, 4 heads
+        return ((r(1, 16, 292), r(4, 160), r(160), r(4)),
+                {"xbc_at": 128, "dt_at": 288, "state": 16})
     return (r(16, 16), r(2, 16, 16), torch.tensor([9, 7], dtype=torch.int32)), {}
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "ssd", "decode_attention",
-                                  "gmm"])
+                                  "gmm", "mamba_front"])
 def test_kernel_bindings_refuse_inputs_that_require_grad(name):
     import importlib
     from repro_torch.kernels import ops
